@@ -1,0 +1,99 @@
+"""Build the CUDA kernels at first use and load them with ``ctypes``.
+
+Each ``kernels/csrc/<name>.cu`` exposes a plain C interface and is compiled
+on its own by ``nvcc`` into a shared library under
+``build/repro_torch_kernels/`` at the repository root (listed in
+``.gitignore``):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+        -Xcompiler -fPIC -Xptxas -v -o build/repro_torch_kernels/lib<name>-<hash>.so <name>.cu
+
+No ``--use_fast_math``: the normalization divides, and that division must
+round as it does on the CPU. The library name carries a hash of the source
+and the flags, so an edited source is rebuilt and a stale one is never
+loaded. ``build()`` starts one ``nvcc`` per missing library, all at once,
+and waits for them together.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+KERNELS = ("lb_keogh", "dtw_ea_fused")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_loaded: dict[str, ctypes.CDLL] = {}
+# name -> (seconds, nvcc's output) of the builds this process ran.
+build_log: dict[str, tuple[float, str]] = {}
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
+        "PATH); the CUDA kernels are built from source at first use"
+    )
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names=KERNELS) -> dict[str, float]:
+    """Compile every missing library of ``names``; returns build seconds.
+
+    The ``nvcc`` processes run in parallel; a failure raises with the
+    compiler's output.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = None
+    procs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        nvcc = nvcc or _nvcc()
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ), tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        build_log[name] = (time.perf_counter() - t0, log)
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (exit {proc.returncode})\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return {name: build_log[name][0] for name in procs}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if missing."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build((name,))
+        lib = ctypes.CDLL(str(library_path(name)))
+        _loaded[name] = lib
+    return lib
