@@ -6,24 +6,37 @@
 Drives ``repro_torch`` (never JAX, never ``repro``) on ``cuda:0``:
 
   1. the card: its name, and its power limit from ``nvidia-smi``;
-  2. build: both CUDA kernels from ``src/repro_torch/kernels/csrc``, with
+  2. build: every CUDA kernel from ``src/repro_torch/kernels/csrc``, with
      ``nvcc``, in parallel;
   3. each kernel against its plain PyTorch version on the card, at the main
-     path's shapes: kernel B over the full N = 1e6 ECG reference for 8
-     queries of l = 1024, w = 102; kernel A over the lane sets and ``ub``s of
-     the first 3 host rounds of that search, with ``use_cb`` on and off;
-     then repeatability: ``window_stats`` and both kernels, run again on the
-     same inputs, must give the same bits (a 1-D ``torch.cumsum``, which
-     ``window_stats`` does not use on the card, is shown beside them);
-  4. the main path end to end: ``multi_query_search`` at the ``SearchConfig``
-     defaults (ECG, N = 1,000,000, l = 1024, w = 102, Q = 8, batch = 256,
-     ``eapruned``, host rounds), with both kernels' launch counts set to 0
+     path's shapes (N = 1e6 ECG reference, 8 queries of l = 1024, w = 102):
+     kernel B over every window; kernel A over the lane sets and ``ub``s of
+     the first 3 host rounds, with ``use_cb`` on and off; kernel D on the
+     slab of the same lanes (equal to A bit for bit with ``use_cb`` off);
+     kernels C and E over each query's whole best-first order, at a cold
+     and a warm seed, against plain sweeps run on the card (C equal to E bit
+     for bit, and C run again giving the same ``(best_dist, best_start)``
+     bits), and over its first 512 lanes with ``use_cb`` on and off and
+     cold, warm and unbeaten seeds; then repeatability: ``window_stats``
+     and kernels B and A run again on the same inputs must give the same
+     bits (a 1-D ``torch.cumsum``, which ``window_stats`` does not use on
+     the card, is shown beside them);
+  4. the main path end to end: ``multi_query_search`` at the
+     ``SearchConfig`` defaults (ECG, N = 1,000,000, l = 1024, w = 102,
+     Q = 8, batch = 256, ``eapruned``), once with host rounds and once with
+     ``rounds="persistent"``, each with every kernel's launch count set to 0
      just before and read just after; each winner's distance is recomputed
-     with the DP oracle, and the search run once more must give the same
-     bits;
+     with the DP oracle, and each search run once more must give the same
+     bits; the persistent search must launch C once, B once and A never,
+     and find the host rounds' ``best_start``. Then the slab arms at the
+     same N, each against its fused counterpart: host rounds with
+     ``gather="slab"`` (kernel D) and the persistent sweep with
+     ``gather="slab"`` (kernel E, over a 33 GB slab; its allocation peak is
+     printed);
   5. the same search at N = 50,000, l = 256, w = 25, Q = 4 on the card and
-     with ``device="cpu"``, for ``eapruned`` and ``eapruned_nolb``;
-  6. per-kernel times with CUDA events beside the plain versions' times;
+     with ``device="cpu"``, for both drivers and both EA variants;
+  6. per-kernel times with CUDA events beside the plain versions' times and
+     the bounds (C and E: the whole cold sweep of phase 3);
   7. a ``{"kernels": [...]}`` line; the last line is
      ``{"ok": true, "device": {...}}``.
 
@@ -47,6 +60,12 @@ DATASET = "ECG"
 DEVICE = "cuda"
 CROSS = dict(ref_len=50_000, query_len=256, window=25, n_queries=4)
 KERNEL_A_ROUNDS = 3
+# Phase 3 holds kernels C and E against their plain versions over the first
+# CE_SHORT best-first lanes of each query (use_cb on and off, three seeds)
+# and over each query's whole order (the main path's shapes); the plain
+# sweeps on the card evaluate CE_CHUNK lanes a query at a time.
+CE_SHORT = 512
+CE_CHUNK = 32_768
 
 # Tolerances, each with its reason.
 # Kernel B: a window's LB_Keogh sums l = 1024 terms; the kernel adds them in
@@ -60,6 +79,10 @@ TOL_B = 1e-4
 # (sequential cumsum) round P differently on every row: 1e-3 relative. A
 # lane whose distance lies within that of its ub may abandon on one side.
 TOL_A = 1e-3
+# Kernels C and E against their plain version, and the persistent search
+# against the host rounds: the same per-lane DP as kernel A, so a
+# distance carries the same rounding of P (1e-3 relative); the winner's
+# start must be equal.
 # Card against CPU: each side computes its own float32 prefix-sum window
 # stats, which round differently (about 1e-5 relative at N = 5e4): 1e-4
 # relative on distances; best_start and quarantine counts exactly.
@@ -190,14 +213,35 @@ def round_inputs(torch, plan, state, order, lb_sorted, r):
     return starts, ub, lbs
 
 
-def phase_kernel_a(torch, prep, pq, plan) -> dict:
+def compare_lanes(torch, k, p, ub, label: str) -> float:
+    """Hold a round kernel's ``(Q, K)`` distances ``k`` against the plain
+    version's ``p``: equal abandon masks except for lanes within ``TOL_A``
+    of their ``ub``, and ``TOL_A`` relative where both finish. Returns the
+    largest absolute difference."""
+    fk, fp = torch.isfinite(k), torch.isfinite(p)
+    near_ub = torch.zeros_like(fk)
+    for d, f in ((k, fk), (p, fp)):
+        near_ub |= f & ((d - ub).abs() <= TOL_A * ub.abs().clamp_min(1.0))
+    mismatched = (fk != fp) & ~near_ub
+    both = fk & fp
+    abs_err = float((k[both] - p[both]).abs().max()) if both.any() else 0.0
+    rel = rel_err(k[both], p[both]) if both.any() else 0.0
+    say(f"  {label}: {int(fk.sum())}/{fk.numel()} lanes finish "
+        f"(plain {int(fp.sum())}), masks differ on "
+        f"{int((fk != fp).sum())} lanes ({int(near_ub.sum())} near ub), "
+        f"max abs err {abs_err:.3e}, max rel err {rel:.3e} (tol {TOL_A})")
+    check(int(mismatched.sum()) == 0, f"{label}: abandon masks differ away "
+          "from ub")
+    check(rel <= TOL_A, f"{label}: rel err {rel} > {TOL_A}")
+    return abs_err
+
+
+def phase_kernel_a(torch, prep, pq, plan, order, lb_sorted) -> dict:
     from repro_torch.core.common import clamp_sigma
     from repro_torch.kernels import ops
     from repro_torch.kernels.dtw_band import dtw_ea_fused_plain
     from repro_torch.search.incumbents import initial_state, fold_min
-    from repro_torch.search.pipeline import cascade
 
-    order, lb_sorted = cascade(plan, prep, pq.qn)
     state = initial_state(pq.qn.shape[0], device=order.device)
     bw = ops.resolve_band(plan.window, plan.length, plan.length, plan.band_width)
     rounds = []
@@ -216,30 +260,237 @@ def phase_kernel_a(torch, prep, pq, plan) -> dict:
             k = ops.dtw_ea_multi_fused(*args, **env)
             p, rows, cells = dtw_ea_fused_plain(*args, bw, count=True, **env)
             torch.cuda.synchronize()
-            fk, fp = torch.isfinite(k), torch.isfinite(p)
-            near_ub = torch.zeros_like(fk)
-            for d, f in ((k, fk), (p, fp)):
-                near_ub |= f & ((d - ub).abs() <= TOL_A * ub.abs().clamp_min(1.0))
-            mismatched = (fk != fp) & ~near_ub
-            both = fk & fp
-            abs_err = float((k[both] - p[both]).abs().max()) if both.any() else 0.0
-            rel = rel_err(k[both], p[both]) if both.any() else 0.0
-            worst_abs = max(worst_abs, abs_err)
-            say(f"[3 kernel A] round {r} use_cb={use_cb}: "
-                f"{int(fk.sum())}/{fk.numel()} lanes finish "
-                f"(plain {int(fp.sum())}), masks differ on "
-                f"{int((fk != fp).sum())} lanes ({int(near_ub.sum())} near ub), "
-                f"max abs err {abs_err:.3e}, max rel err {rel:.3e} (tol {TOL_A}); "
-                f"plain counts {int(rows.sum())} rows, {int(cells.sum())} cells")
-            check(int(mismatched.sum()) == 0,
-                  f"kernel A abandon masks differ away from ub (round {r})")
-            check(rel <= TOL_A, f"kernel A rel err {rel} > {TOL_A}")
+            worst_abs = max(worst_abs, compare_lanes(
+                torch, k, p, ub, f"[3 kernel A] round {r} use_cb={use_cb}"))
+            say(f"    plain counts {int(rows.sum())} rows, "
+                f"{int(cells.sum())} cells")
             if use_cb:
                 rounds.append({"args": args, "env": env, "cells": int(cells.sum()),
-                               "lanes": k.numel(), "bw": bw})
+                               "lanes": k.numel(), "bw": bw, "out": k})
                 d_fold = torch.where(torch.isfinite(lbs), k, float("inf"))
+            else:
+                rounds[-1]["out_nocb"] = k
         state, _ = fold_min(state, starts, d_fold)
     return {"rounds": rounds, "max_abs_err": worst_abs}
+
+
+def phase_kernel_d(torch, prep, pq, plan, ka) -> dict:
+    """Kernel D on the slab of kernel A's three round lane sets: equal to
+    A bit for bit with ``use_cb`` off; against its plain version and
+    within ``TOL_A`` of A with the host-side cb slab."""
+    from repro_torch.core.lower_bounds import cascade_keogh_cumulative
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dtw_band import dtw_ea_plain
+    from repro_torch.search.znorm import gather_norm_windows
+
+    rounds = []
+    worst_abs = 0.0
+    for i, r in enumerate(ka["rounds"]):
+        qn, _, s32, _, _, ub, window, length = r["args"]
+        slab = gather_norm_windows(prep.ref, s32, length, prep.mu,
+                                   prep.sigma).contiguous()
+        cbs = cascade_keogh_cumulative(slab, pq.u[:, None, :],
+                                       pq.low[:, None, :]).contiguous()
+        d_off = ops.dtw_ea_multi(qn, slab, ub, window)
+        d_on = ops.dtw_ea_multi(qn, slab, ub, window, cb=cbs)
+        p, rows, cells = dtw_ea_plain(qn, slab, ub, window, r["bw"], cb=cbs,
+                                      count=True)
+        torch.cuda.synchronize()
+        same = torch.equal(d_off, r["out_nocb"])
+        say(f"[3 kernel D] round {i}: use_cb=False equals kernel A bit for "
+            f"bit: {same}")
+        check(same, f"kernel D differs from kernel A (round {i}, no cb)")
+        worst_abs = max(worst_abs, compare_lanes(
+            torch, d_on, p, ub, f"[3 kernel D] round {i} host cb slab"))
+        compare_lanes(torch, d_on, r["out"], ub,
+                      f"[3 kernel D] round {i} host cb slab against kernel A")
+        rounds.append({"args": (qn, slab, ub, window), "cb": cbs,
+                       "cells": int(cells.sum()), "lanes": d_on.numel(),
+                       "bw": r["bw"]})
+    return {"rounds": rounds, "max_abs_err": worst_abs}
+
+
+def _ce_check(torch, c, p, label: str, *, start_only: bool = False) -> float:
+    """Hold a persistent kernel's ``(best_dist, best_start, blocks)`` ``c``
+    against its plain version's ``p``: the same starts, distances within
+    ``TOL_A`` relative; ``blocks`` is printed. Returns the largest absolute
+    distance difference."""
+    abs_err = float((c[0] - p[0]).abs().max())
+    rel = rel_err(c[0], p[0])
+    say(f"  {label}: best_start {c[1].tolist()} (plain {p[1].tolist()}), "
+        f"best_dist max abs err {abs_err:.3e}, max rel err {rel:.3e} "
+        f"(tol {TOL_A}); blocks {c[2].tolist()} (plain {p[2].tolist()})")
+    check(c[1].tolist() == p[1].tolist(),
+          f"{label}: best_start differs from the plain version")
+    check(rel <= TOL_A, f"{label}: best_dist rel err {rel} > {TOL_A}")
+    return abs_err
+
+
+def phase_kernel_ce(torch, prep, pq, plan, order, lb_sorted) -> dict:
+    """Kernels C and E against their plain versions, in two parts.
+
+    Short: the first ``CE_SHORT`` best-first lanes of each query, with
+    ``use_cb`` on and off and a cold seed, a warm one (1% above the cold
+    answer) and an unbeaten one (1% below); C and E each against its own
+    plain version, and C equal to E bit for bit.
+
+    Whole: each query's whole best-first order at the main path's
+    ``use_cb``, as the persistent search runs it: C against its plain
+    version at the cold and the warm seed, E (on the full ``(Q, n_win, l)``
+    slab) against its own at the cold seed, C equal to E bit for bit, and C
+    run again giving the same ``(best_dist, best_start)`` bits (``blocks``
+    may differ). The plain sweeps run on the card, ``CE_CHUNK`` lanes a
+    query at a time, and their seconds are printed. C and E are timed here
+    over the whole cold sweep, and the least work of any best-first sweep
+    (every lane whose bound lies below the answer, run against the answer)
+    is counted for their bound."""
+    from repro_torch.core.common import BIG, DEAD_LANE_UB, clamp_sigma
+    from repro_torch.core.lower_bounds import cascade_keogh_cumulative
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dtw_band import (
+        dtw_ea_persistent_fused_plain,
+        dtw_ea_persistent_plain,
+        dtw_ea_plain,
+    )
+    from repro_torch.search.znorm import gather_norm_windows
+
+    nq = pq.qn.shape[0]
+    w, m, bk = plan.window, plan.length, plan.block_k
+    bw = ops.resolve_band(w, m, m, plan.band_width)
+    cold = torch.full((nq,), BIG, dtype=torch.float32, device=order.device)
+
+    def descriptors(k):
+        """Kernel C's lane inputs for the first ``k`` best-first lanes."""
+        starts = order[:, :k]
+        return (pq.qn.contiguous(), prep.ref, lb_sorted[:, :k].contiguous(),
+                starts.to(torch.int32).contiguous(),
+                prep.mu[starts].contiguous(),
+                clamp_sigma(prep.sigma[starts]).contiguous())
+
+    worst_abs = 0.0
+    fused = descriptors(CE_SHORT)
+    slab = gather_norm_windows(prep.ref, order[:, :CE_SHORT], m, prep.mu,
+                               prep.sigma)
+    qn, _, lb, s32 = fused[:4]
+    for use_cb in (True, False):
+        env = dict(u=pq.u.contiguous(), low=pq.low.contiguous(),
+                   use_cb=use_cb)
+        c_cold = ops.dtw_ea_persistent_fused(*fused, cold, w, m, **env)
+        seeds = {"cold": cold, "warm": c_cold[0] * 1.01,
+                 "unbeaten": c_cold[0] * 0.99}
+        for name, seed in seeds.items():
+            c = ops.dtw_ea_persistent_fused(*fused, seed, w, m, **env)
+            e = ops.dtw_ea_persistent(qn, slab, lb, s32, seed, w, **env)
+            pc = dtw_ea_persistent_fused_plain(*fused, seed, w, m, bw, bk,
+                                               **env)
+            pe = dtw_ea_persistent_plain(qn, slab, lb, s32, seed, w, bw, bk,
+                                         **env)
+            torch.cuda.synchronize()
+            label = f"{CE_SHORT} lanes use_cb={use_cb} {name} seed"
+            worst_abs = max(worst_abs,
+                            _ce_check(torch, c, pc, f"[3 kernel C] {label}"),
+                            _ce_check(torch, e, pe, f"[3 kernel E] {label}"))
+            same_ce = torch.equal(c[0], e[0]) and torch.equal(c[1], e[1])
+            say(f"  C equals E bit for bit: {same_ce}")
+            check(same_ce, f"kernels C and E differ ({label})")
+            if name == "unbeaten":
+                check(c[1].tolist() == [-1] * nq, "an unbeaten seed was beaten")
+    del fused, slab
+
+    # The whole best-first order of every query.
+    k = order.shape[1]
+    use_cb = plan.use_cb
+    env = dict(u=pq.u.contiguous(), low=pq.low.contiguous(), use_cb=use_cb)
+    fused = descriptors(k)
+    qn, _, lb, s32 = fused[:4]
+    say(f"[3 kernels C, E] whole best-first order: {k} lanes a query, "
+        f"use_cb={use_cb}; kernel C keeps "
+        f"{ops.persistent_grid(m, bw, use_cb, fused=True)} thread blocks "
+        f"resident, kernel E {ops.persistent_grid(m, bw, use_cb, fused=False)}")
+
+    def plain_c(seed):
+        t0 = time.perf_counter()
+        out = dtw_ea_persistent_fused_plain(*fused, seed, w, m, bw, bk,
+                                            chunk=CE_CHUNK, **env)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    c_call = lambda seed: ops.dtw_ea_persistent_fused(*fused, seed, w, m,
+                                                      block_k=bk, **env)
+    c = {"cold": c_call(cold)}
+    c["warm"] = c_call(c["cold"][0] * 1.01)
+    plain_s = {}
+    for name in ("cold", "warm"):
+        seed = cold if name == "cold" else c["cold"][0] * 1.01
+        p, plain_s[name] = plain_c(seed)
+        say(f"  plain sweep of C, {name} seed: {plain_s[name]:.2f} s on the "
+            f"card, {CE_CHUNK} lanes a query at a time")
+        worst_abs = max(worst_abs, _ce_check(
+            torch, c[name], p, f"[3 kernel C] whole order, {name} seed"))
+    runs = [c_call(cold) for _ in range(2)]
+    torch.cuda.synchronize()
+    first = c["cold"]
+    same = all(torch.equal(r[0], first[0]) and torch.equal(r[1], first[1])
+               for r in runs)
+    say(f"[3 repeat] kernel C over the whole order run 3 times: (best_dist, "
+        f"best_start) the same bits: {same}; blocks "
+        f"{[r[2].tolist() for r in (first, *runs)]}")
+    check(same, "kernel C is not repeatable")
+    c_ms = cuda_ms(lambda: c_call(cold), 2)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    slab = gather_norm_windows(prep.ref, order, m, prep.mu, prep.sigma)
+    torch.cuda.synchronize()
+    say(f"  the whole slab: {tuple(slab.shape)}, "
+        f"{slab.numel() * 4 / 1e9:.2f} GB")
+    e_call = lambda seed: ops.dtw_ea_persistent(qn, slab, lb, s32, seed, w,
+                                                block_k=bk, **env)
+    e = {}
+    for name in ("cold", "warm"):
+        seed = cold if name == "cold" else c["cold"][0] * 1.01
+        e[name] = e_call(seed)
+        torch.cuda.synchronize()
+        same_ce = (torch.equal(c[name][0], e[name][0])
+                   and torch.equal(c[name][1], e[name][1]))
+        say(f"[3 kernel E] whole order, {name} seed: C equals E bit for bit: "
+            f"{same_ce}; blocks E {e[name][2].tolist()}")
+        check(same_ce, f"kernels C and E differ over the whole order ({name})")
+    t0 = time.perf_counter()
+    pe = dtw_ea_persistent_plain(qn, slab, lb, s32, cold, w, bw, bk,
+                                 chunk=CE_CHUNK, **env)
+    torch.cuda.synchronize()
+    plain_s["E"] = time.perf_counter() - t0
+    say(f"  plain sweep of E, cold seed: {plain_s['E']:.2f} s on the card")
+    worst_abs = max(worst_abs, _ce_check(
+        torch, e["cold"], pe, "[3 kernel E] whole order, cold seed"))
+    e_ms = cuda_ms(lambda: e_call(cold), 2)
+
+    # The least work of any best-first sweep: every lane whose bound lies
+    # below the answer, run against the answer itself (a best-first prefix
+    # of each query's order).
+    best = first[0][:, None]
+    live = lb < best
+    n_live = int(live.sum(dim=1).max())
+    cells = 0
+    for lo in range(0, n_live, CE_CHUNK):
+        hi = min(n_live, lo + CE_CHUNK)
+        sl = slab[:, lo:hi]
+        ub = torch.where(live[:, lo:hi], best, DEAD_LANE_UB).contiguous()
+        cb = (cascade_keogh_cumulative(sl, pq.u[:, None, :], pq.low[:, None, :])
+              if use_cb else None)
+        _, _, cl = dtw_ea_plain(qn, sl, ub, w, bw, cb=cb, count=True)
+        cells += int(cl.sum())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    say(f"  least work of the cold sweep: {int(live.sum())} lanes below the "
+        f"answer, {cells} cells; peak {peak:.2f} GB allocated with the slab")
+    del slab
+    torch.cuda.empty_cache()
+    return {"c_ms": c_ms, "e_ms": e_ms, "c_plain_ms": plain_s["cold"] * 1e3,
+            "e_plain_ms": plain_s["E"] * 1e3, "cells": cells,
+            "live": int(live.sum()), "length": m,
+            "env_floats": qn.numel() + 2 * env["u"].numel() + 4 * nq,
+            "max_abs_err": worst_abs}
 
 
 def phase_repeat(torch, prep, plan, kb, ka, reps: int = 3) -> None:
@@ -279,39 +530,74 @@ def phase_repeat(torch, prep, plan, kb, ka, reps: int = 3) -> None:
     check(n_a == 0, "kernel A is not repeatable")
 
 
-def phase_end_to_end(torch, cfg, ref, queries) -> dict:
-    from repro_torch.core.common import norm_window_slice
-    from repro_torch.core.ea_pruned_dtw import ea_pruned_dtw_banded
+KERNELS = ("dtw_ea_multi_fused", "lb_keogh_all_windows",
+           "dtw_ea_persistent_fused", "dtw_ea_multi", "dtw_ea_persistent")
+
+
+def counted_search(torch, ref, queries, cfg, **kw):
+    """One ``multi_query_search`` on the card with every kernel's launch
+    count set to 0 just before and read just after. Returns ``(result,
+    wall seconds, launches)``."""
     from repro_torch.kernels import ops
     from repro_torch.search import multi_query_search
-    from repro_torch.search.pipeline import prepare_queries, prepare_ref
 
-    plan = cfg.make_plan()
-    ops.lb_keogh_all_windows.launches = 0
-    ops.dtw_ea_multi_fused.launches = 0
+    for name in KERNELS:
+        getattr(ops, name).launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = multi_query_search(
         ref, queries, cfg.query_len, cfg.window, variant=cfg.variant,
-        batch=cfg.batch, warm_start=cfg.warm_start, device=DEVICE,
+        batch=cfg.batch, warm_start=cfg.warm_start, block_k=cfg.block_k,
+        device=DEVICE, **kw,
     )
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"lb_keogh_all_windows": ops.lb_keogh_all_windows.launches,
-                "dtw_ea_multi_fused": ops.dtw_ea_multi_fused.launches}
+    return res, wall, {name: getattr(ops, name).launches for name in KERNELS}
+
+
+def phase_end_to_end(torch, cfg, ref, queries, rounds: str,
+                     host: dict | None = None) -> dict:
+    """The main path end to end under one round driver: launch counts,
+    winners in range and finite, the oracle recheck, the same bits when run
+    again; the persistent sweep also launches C once, B once and A never,
+    and must find the host rounds' ``best_start``."""
+    from repro_torch.core.common import norm_window_slice
+    from repro_torch.core.ea_pruned_dtw import ea_pruned_dtw_banded
+    from repro_torch.search.pipeline import prepare_queries, prepare_ref
+
+    plan = cfg.make_plan(rounds=rounds)
+    res, wall, launches = counted_search(torch, ref, queries, cfg,
+                                         rounds=rounds)
     say(f"[4 end to end] multi_query_search N={cfg.ref_len} l={cfg.query_len} "
         f"w={cfg.window} Q={cfg.n_queries} batch={cfg.batch} {cfg.variant} "
-        f"host rounds: {wall:.3f} s wall; launches {launches}")
+        f"rounds={rounds}: {wall:.3f} s wall; launches {launches}")
     starts = res.best_start.tolist()
-    dists = res.best_dist.tolist()
     say(f"  best_start {starts}")
-    say(f"  best_dist {dists}")
+    say(f"  best_dist {res.best_dist.tolist()}")
     say(f"  rounds {res.rounds.tolist()} lanes {res.lanes.tolist()} "
         f"quarantined {int(res.quarantined)}")
-    check(all(v > 0 for v in launches.values()), "a kernel was not launched")
+    if rounds == "host":
+        check(launches["dtw_ea_multi_fused"] > 0
+              and launches["lb_keogh_all_windows"] > 0,
+              "a kernel was not launched")
+    else:
+        check(launches["dtw_ea_persistent_fused"] == 1
+              and launches["lb_keogh_all_windows"] == 1
+              and launches["dtw_ea_multi_fused"] == 0,
+              "the persistent search must launch C once, B once and A never")
     n_win = cfg.ref_len - cfg.query_len + 1
     check(all(0 <= s < n_win for s in starts), "best_start out of range")
     check(bool(torch.isfinite(res.best_dist).all()), "non-finite best_dist")
+    if host is not None:
+        h = host["res"]
+        rel = rel_err(res.best_dist, h.best_dist)
+        bits = torch.equal(res.best_dist, h.best_dist)
+        say(f"  against the host rounds: best_start equal "
+            f"{starts == h.best_start.tolist()}, best_dist max rel err "
+            f"{rel:.3e} (tol {TOL_A}), the same bits: {bits}")
+        check(starts == h.best_start.tolist(),
+              "the persistent search found another best_start")
+        check(rel <= TOL_A, "persistent best_dist differs from host rounds")
     # Recompute each winner with the DP oracle on the same stats.
     prep = prepare_ref(plan, ref)
     pq = prepare_queries(plan, queries)
@@ -322,15 +608,57 @@ def phase_end_to_end(torch, cfg, ref, queries) -> dict:
     say(f"  oracle recheck of the winners: max rel err {rel:.3e} "
         f"(tol {TOL_ORACLE})")
     check(rel <= TOL_ORACLE, "winner distance disagrees with the DP oracle")
-    again = multi_query_search(
-        ref, queries, cfg.query_len, cfg.window, variant=cfg.variant,
-        batch=cfg.batch, warm_start=cfg.warm_start, device=DEVICE,
-    )
+    again, _, _ = counted_search(torch, ref, queries, cfg, rounds=rounds)
     same = (torch.equal(again.best_start, res.best_start)
             and torch.equal(again.best_dist, res.best_dist))
-    say(f"  the search run again: same bits {same}")
+    say(f"  the search run again: same bits {same}; lanes "
+        f"{again.lanes.tolist()}")
     check(same, "the search is not repeatable on the card")
-    return {"wall_s": wall, "launches": launches}
+    return {"wall_s": wall, "launches": launches, "res": res}
+
+
+def phase_slab_arms(torch, cfg, ref, queries, host: dict, sweep: dict) -> dict:
+    """The slab arms end to end at the full N: host rounds with
+    ``gather="slab"`` (kernel D, an (8, 256, 1024) slab a round) against
+    phase 4's host rounds, and the persistent sweep with ``gather="slab"``
+    (kernel E, the whole (8, n_win, 1024) slab) against phase 4's fused
+    sweep, with its allocation peak."""
+    res, wall, launches = counted_search(torch, ref, queries, cfg,
+                                         gather="slab")
+    say(f"[4 slab arms] host rounds gather=slab N={cfg.ref_len}: {wall:.3f} s "
+        f"wall; launches {launches}; best_start equal to gather=fused "
+        f"{res.best_start.tolist() == host['res'].best_start.tolist()}, "
+        f"best_dist the same bits "
+        f"{torch.equal(res.best_dist, host['res'].best_dist)}")
+    check(launches["dtw_ea_multi"] > 0 and launches["dtw_ea_multi_fused"] == 0
+          and launches["lb_keogh_all_windows"] == 1,
+          "the slab host rounds must run kernel D and not kernel A")
+    check(res.best_start.tolist() == host["res"].best_start.tolist(),
+          "host rounds: gather=slab and gather=fused differ")
+    out = {"dtw_ea_multi": launches["dtw_ea_multi"], "host_slab_wall_s": wall}
+    del res
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    slab, s_wall, s_launches = counted_search(torch, ref, queries, cfg,
+                                              rounds="persistent",
+                                              gather="slab")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    fused = sweep["res"]
+    say(f"[4 slab arms] persistent gather=slab N={cfg.ref_len}: "
+        f"{s_wall:.3f} s wall (gather=fused {sweep['wall_s']:.3f} s), peak "
+        f"{peak:.2f} GB allocated, launches {s_launches}; best_start equal "
+        f"{slab.best_start.tolist() == fused.best_start.tolist()}, best_dist "
+        f"the same bits {torch.equal(slab.best_dist, fused.best_dist)}")
+    check(s_launches["dtw_ea_persistent"] == 1
+          and s_launches["lb_keogh_all_windows"] == 1
+          and s_launches["dtw_ea_persistent_fused"] == 0,
+          "the slab sweep must launch E once and C never")
+    check(slab.best_start.tolist() == fused.best_start.tolist(),
+          "persistent: gather=slab and gather=fused differ")
+    torch.cuda.empty_cache()
+    out.update(dtw_ea_persistent=s_launches["dtw_ea_persistent"],
+               sweep_slab_wall_s=s_wall, sweep_slab_peak_gb=peak)
+    return out
 
 
 def phase_cross_check(torch) -> None:
@@ -343,31 +671,46 @@ def phase_cross_check(torch) -> None:
     ref = make_dataset(DATASET, c["ref_len"], seed=0).astype(np.float32)
     qs = make_queries(DATASET, c["n_queries"], c["query_len"], seed=1)
     qs = qs.astype(np.float32)
-    for variant in ("eapruned", "eapruned_nolb"):
-        out = {}
-        for dev in (DEVICE, "cpu"):
-            t0 = time.perf_counter()
-            out[dev] = multi_query_search(
-                ref, qs, c["query_len"], c["window"], variant=variant,
-                batch=256, device=dev,
-            )
-            torch.cuda.synchronize()
-            say(f"[5 cross-check] {variant} {dev}: "
-                f"{time.perf_counter() - t0:.2f} s, best_start "
-                f"{out[dev].best_start.tolist()}")
-        g, h = out[DEVICE], out["cpu"]
-        check(g.best_start.cpu().tolist() == h.best_start.tolist(),
-              f"{variant}: best_start differs between card and CPU")
-        check(int(g.quarantined) == int(h.quarantined),
-              f"{variant}: quarantine counts differ")
-        rel = rel_err(g.best_dist.cpu(), h.best_dist)
-        say(f"  {variant}: best_dist max rel err {rel:.3e} (tol {TOL_CROSS})")
-        check(rel <= TOL_CROSS, f"{variant}: distances differ")
+    for rounds in ("host", "persistent"):
+        for variant in ("eapruned", "eapruned_nolb"):
+            out = {}
+            for dev in (DEVICE, "cpu"):
+                t0 = time.perf_counter()
+                out[dev] = multi_query_search(
+                    ref, qs, c["query_len"], c["window"], variant=variant,
+                    batch=256, rounds=rounds, device=dev,
+                )
+                torch.cuda.synchronize()
+                say(f"[5 cross-check] {rounds} {variant} {dev}: "
+                    f"{time.perf_counter() - t0:.2f} s, best_start "
+                    f"{out[dev].best_start.tolist()}")
+            g, h = out[DEVICE], out["cpu"]
+            label = f"{rounds} {variant}"
+            check(g.best_start.cpu().tolist() == h.best_start.tolist(),
+                  f"{label}: best_start differs between card and CPU")
+            check(int(g.quarantined) == int(h.quarantined),
+                  f"{label}: quarantine counts differ")
+            rel = rel_err(g.best_dist.cpu(), h.best_dist)
+            say(f"  {label}: best_dist max rel err {rel:.3e} "
+                f"(tol {TOL_CROSS})")
+            check(rel <= TOL_CROSS, f"{label}: distances differ")
 
 
-def phase_times(torch, kb: dict, ka: dict) -> list[dict]:
+def bound_by(cells: int, bound: float) -> str:
+    """Which of the two times sets a DTW kernel's bound."""
+    return ("operations" if FLOPS_PER_CELL * cells / PEAK_FP32 * 1e3 >= bound
+            else "bytes")
+
+
+def dtw_bound_ms(cells: int, nbytes: int) -> float:
+    """The least time for a DTW kernel's work: ``FLOPS_PER_CELL`` per
+    evaluated cell at the FP32 peak, or its bytes at the HBM peak."""
+    return max(FLOPS_PER_CELL * cells / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3
+
+
+def phase_times(torch, kb: dict, ka: dict, kd: dict, kce: dict) -> list[dict]:
     from repro_torch.kernels import ops
-    from repro_torch.kernels.dtw_band import dtw_ea_fused_plain
+    from repro_torch.kernels.dtw_band import dtw_ea_fused_plain, dtw_ea_plain
     from repro_torch.kernels.lb_keogh import lb_all_windows_plain
 
     args, valid = kb["args"], kb["valid"]
@@ -388,10 +731,37 @@ def phase_times(torch, kb: dict, ka: dict) -> list[dict]:
         a_plain.append(host_ms(lambda: dtw_ea_fused_plain(*r["args"], r["bw"], **r["env"])))
         m = r["args"][-1]
         nbytes = 4 * (r["lanes"] * (m + 5) + 3 * r["args"][0].numel())
-        ops_a = FLOPS_PER_CELL * r["cells"]
-        a_bound.append(max(ops_a / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3)
+        a_bound.append(dtw_bound_ms(r["cells"], nbytes))
         say(f"  kernel A round {i}: {a_ms[-1]:.3f} ms (plain {a_plain[-1]:.1f} ms), "
             f"bound {a_bound[-1]:.4f} ms ({r['cells']} cells)")
+
+    # Kernel D: the three rounds' slabs with the host cb slab; each lane
+    # reads its window and cb rows (2m floats) and its ub, writes one float.
+    d_ms, d_plain, d_bound = [], [], []
+    for i, r in enumerate(kd["rounds"]):
+        args, cb = r["args"], r["cb"]
+        d_ms.append(cuda_ms(lambda: ops.dtw_ea_multi(*args, cb=cb), 5))
+        d_plain.append(host_ms(lambda: dtw_ea_plain(*args, r["bw"], cb=cb)))
+        m = args[1].shape[-1]
+        nbytes = 4 * (r["lanes"] * (2 * m + 2) + args[0].numel())
+        d_bound.append(dtw_bound_ms(r["cells"], nbytes))
+        say(f"  kernel D round {i}: {d_ms[-1]:.3f} ms (plain {d_plain[-1]:.1f} ms), "
+            f"bound {d_bound[-1]:.4f} ms ({r['cells']} cells)")
+
+    # Kernels C and E: the cold sweep of each query's whole order (phase 3).
+    # The bound counts the least work of any best-first sweep, and each
+    # lane of it reads its inputs once: C its window of the reference and
+    # four descriptors, E its slab row and two.
+    m, live = kce["length"], kce["live"]
+    fixed = 4 * kce["env_floats"]
+    c_ms, e_ms = kce["c_ms"], kce["e_ms"]
+    c_plain, e_plain = kce["c_plain_ms"], kce["e_plain_ms"]
+    c_bound = dtw_bound_ms(kce["cells"], fixed + 4 * live * (m + 4))
+    e_bound = dtw_bound_ms(kce["cells"], fixed + 4 * live * (m + 2))
+    say(f"  kernel C (whole order): {c_ms:.3f} ms (plain {c_plain:.1f} ms), "
+        f"bound {c_bound:.4f} ms ({kce['cells']} cells)")
+    say(f"  kernel E (whole order): {e_ms:.3f} ms (plain {e_plain:.1f} ms), "
+        f"bound {e_bound:.4f} ms")
     mean = lambda xs: sum(xs) / len(xs)
     return [
         {"name": "dtw_ea_multi_fused", "route": "cuda",
@@ -405,6 +775,24 @@ def phase_times(torch, kb: dict, ka: dict) -> list[dict]:
          "replaces": "src/repro/kernels/lb_keogh.py:19",
          "max_abs_err": kb["max_abs_err"], "ms": b_ms, "plain_ms": b_plain,
          "bound_ms": b_bound, "bound_by": "operations", "library_ms": None},
+        {"name": "dtw_ea_persistent_fused", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/dtw_ea_persistent.cu",
+         "replaces": "src/repro/kernels/dtw_band.py:479",
+         "max_abs_err": kce["max_abs_err"], "ms": c_ms, "plain_ms": c_plain,
+         "bound_ms": c_bound, "bound_by": bound_by(kce["cells"], c_bound),
+         "library_ms": None},
+        {"name": "dtw_ea_multi", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/dtw_ea_slab.cu",
+         "replaces": "src/repro/kernels/dtw_band.py:370",
+         "max_abs_err": kd["max_abs_err"], "ms": mean(d_ms),
+         "plain_ms": mean(d_plain), "bound_ms": mean(d_bound),
+         "bound_by": "operations", "library_ms": None},
+        {"name": "dtw_ea_persistent", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/dtw_ea_persistent.cu",
+         "replaces": "src/repro/kernels/dtw_band.py:479",
+         "max_abs_err": kce["max_abs_err"], "ms": e_ms, "plain_ms": e_plain,
+         "bound_ms": e_bound, "bound_by": bound_by(kce["cells"], e_bound),
+         "library_ms": None},
     ]
 
 
@@ -434,18 +822,35 @@ def main() -> int:
     cfg = SearchConfig()
     ref, queries = main_path_inputs(torch, cfg, DEVICE)
     plan = cfg.make_plan()
-    from repro_torch.search.pipeline import prepare_queries, prepare_ref
+    from repro_torch.search.pipeline import cascade, prepare_queries, prepare_ref
 
     prep = prepare_ref(plan, ref)
     pq = prepare_queries(plan, queries)
+    order, lb_sorted = cascade(plan, prep, pq.qn)
     kb = timed("phase 3 kernel B", phase_kernel_b, torch, prep, pq, plan)
-    ka = timed("phase 3 kernel A", phase_kernel_a, torch, prep, pq, plan)
+    ka = timed("phase 3 kernel A", phase_kernel_a, torch, prep, pq, plan,
+               order, lb_sorted)
+    kd = timed("phase 3 kernel D", phase_kernel_d, torch, prep, pq, plan, ka)
+    kce = timed("phase 3 kernels C, E", phase_kernel_ce, torch, prep, pq,
+                plan, order, lb_sorted)
     timed("phase 3 repeat", phase_repeat, torch, prep, plan, kb, ka)
-    e2e = timed("phase 4", phase_end_to_end, torch, cfg, ref, queries)
+    del order, lb_sorted
+    host = timed("phase 4 host rounds", phase_end_to_end, torch, cfg, ref,
+                 queries, "host")
+    sweep = timed("phase 4 persistent", phase_end_to_end, torch, cfg, ref,
+                  queries, "persistent", host)
+    slab = timed("phase 4 slab arms", phase_slab_arms, torch, cfg, ref,
+                 queries, host, sweep)
     timed("phase 5", phase_cross_check, torch)
-    kernels = timed("phase 6", phase_times, torch, kb, ka)
+    kernels = timed("phase 6", phase_times, torch, kb, ka, kd, kce)
+    # Launches on the path that runs each kernel: host rounds (A, B), the
+    # persistent sweep (C), the slab arms (D, E).
+    launches = dict(host["launches"])
+    launches["dtw_ea_persistent_fused"] = sweep["launches"]["dtw_ea_persistent_fused"]
+    launches["dtw_ea_multi"] = slab["dtw_ea_multi"]
+    launches["dtw_ea_persistent"] = slab["dtw_ea_persistent"]
     for k in kernels:
-        k["launches"] = e2e["launches"][k["name"]]
+        k["launches"] = launches[k["name"]]
     say(f"total {time.perf_counter() - t_all:.2f} s")
     say(json.dumps({"kernels": kernels}))
     say(card["smi"])

@@ -6,11 +6,10 @@ reference of N = 1,000,000 samples, queries of l = 1024, window ratio 0.1
 (w = 102), Q = 8 standing queries and 256 candidates per query per round.
 See ``repro``'s config for what each knob does; ``backend`` has no
 counterpart (the port dispatches by device). The Pallas tiling knobs
-(``rows_per_step``, ``block_k``, ``row_block``) change nothing here, and
-``rounds``, ``gather`` and ``slab_budget`` have one working setting in this
-slice, so ``make_plan``'s defaults supply them; each comes back with the
-ROADMAP.md item that gives it a second. The streaming, resilience and
-hedging knobs belong to modules not ported yet.
+``rows_per_step`` and ``row_block`` change nothing here, so ``make_plan``'s
+defaults supply them; ``block_k`` sets the granularity of the persistent
+sweep's ``blocks`` work metric. The streaming, resilience and hedging knobs
+belong to modules not ported yet.
 """
 from dataclasses import dataclass
 
@@ -24,6 +23,10 @@ class SearchConfig:
     batch: int = 256                 # candidates per query per round
     variant: str = "eapruned"
     band_width: int | None = None    # None = warp-aligned 2*window+1
+    block_k: int = 8                 # persistent sweep: lanes per work block
+    rounds: str = "host"             # round driver: "host" | "persistent"
+    gather: str = "fused"            # candidate materialization (§2.10)
+    slab_budget: int | None = None   # byte cap on host-side slabs (§2.10)
     n_queries: int = 8               # multi-query workload size
     warm_start: int = 0              # incumbent-seeding prepass
     quarantine: bool = True          # non-finite window quarantine (§2.6)
@@ -43,6 +46,10 @@ class SearchConfig:
             variant=self.variant,
             batch=self.batch,
             band_width=self.band_width,
+            block_k=self.block_k,
+            rounds=self.rounds,
+            gather=self.gather,
+            slab_budget=self.slab_budget,
             quarantine=self.quarantine,
             warm_start=self.warm_start,
         )

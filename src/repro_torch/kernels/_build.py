@@ -9,9 +9,10 @@ on its own by ``nvcc`` into a shared library under
         -Xcompiler -fPIC -Xptxas -v -o build/repro_torch_kernels/lib<name>-<hash>.so <name>.cu
 
 No ``--use_fast_math``: the normalization divides, and that division must
-round as it does on the CPU. The library name carries a hash of the source
-and the flags, so an edited source is rebuilt and a stale one is never
-loaded. ``build()`` starts one ``nvcc`` per missing library, all at once,
+round as it does on the CPU. The library name carries a hash of the source,
+of the shared headers (``csrc/*.cuh``, which every DTW kernel includes) and
+of the flags, so an edited source or header is rebuilt and a stale library
+is never loaded. ``build()`` starts one ``nvcc`` per missing library, all at once,
 and waits for them together.
 """
 from __future__ import annotations
@@ -26,7 +27,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNELS = ("lb_keogh", "dtw_ea_fused")
+KERNELS = ("lb_keogh", "dtw_ea_fused", "dtw_ea_slab", "dtw_ea_persistent")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -52,6 +53,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

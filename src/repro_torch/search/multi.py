@@ -1,8 +1,11 @@
 """Multi-query subsequence search (port of ``repro/search/multi.py``).
 
 Q queries share one reference: one ``window_stats`` pass, one cascade
-launch for all Q queries, and one ``(Q × batch)``-lane round per dispatch
-with a per-query incumbent vector (``search.pipeline``). The distributed
+launch for all Q queries, then either one ``(Q × batch)``-lane round per
+dispatch with a per-query incumbent vector (``rounds="host"``) or the whole
+best-first sweep in one launch (``rounds="persistent"``), each with the
+windows sliced in the kernel (``gather="fused"``) or gathered into a slab
+(``gather="slab"``); see ``search.pipeline``. The distributed
 variant is not ported yet (ROADMAP.md Queue 1 item 9).
 """
 from __future__ import annotations

@@ -1,23 +1,28 @@
 """The staged search pipeline: SearchPlan → prepare → cascade → execute.
 
-Port of ``repro/search/pipeline.py`` for the main path: offline search
-under ``rounds="host"`` and ``gather="fused"``, for the ``eapruned`` and
-``eapruned_nolb`` variants. Stages::
+Port of ``repro/search/pipeline.py`` for offline search with the
+``eapruned`` and ``eapruned_nolb`` variants, under both round drivers and
+both gather modes. Stages::
 
     SearchPlan (make_plan: validated knobs)
         ├─ prepare_ref      window stats + §2.6 quarantine mask/sanitize
         ├─ prepare_queries  z-norm + LB_Keogh envelopes
         ├─ cascade          LB_Kim/LB_Keogh per window (kernel B on CUDA),
         │                   +inf for quarantined windows, stable sort
-        └─ run_host_rounds  best-first (Q × batch)-lane rounds, one call of
-                            kernel A per round on CUDA
+        └─ execute          one of two drivers:
+             run_host_rounds  best-first (Q × batch)-lane rounds: one call of
+                              kernel A (gather="fused") or of kernel D on a
+                              (Q, batch, l) slab (gather="slab") per round
+             run_persistent   the whole best-first order in one launch:
+                              kernel C (fused) or kernel E on the
+                              (Q, n_win, l) slab (slab)
 
 ``repro`` runs the round loop as a ``lax.while_loop``; here it is a Python
 loop that reads ``any(active)`` once per round, the only host sync of a
-round (the round kernel checks its lanes' start range on the device). Not ported yet, and raising ``NotImplementedError`` naming the
-ROADMAP.md item that ports them: ``rounds="persistent"`` (Queue 1 item 5),
-``gather="slab"``, ``with_info=True`` and the ``full``/``pruned`` variants
-(Queue 1 item 6).
+round (the round kernels check their lanes on the device). The persistent
+sweep makes one host sync, the out-of-range count of kernel C. Not ported
+yet, and raising ``NotImplementedError`` naming ROADMAP.md Queue 1 item 6:
+``with_info=True`` and the ``full``/``pruned`` variants.
 """
 from __future__ import annotations
 
@@ -27,12 +32,18 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import guards
-from repro_torch.core.batch import ea_pruned_dtw_multi_batch_fused
-from repro_torch.core.common import DEAD_LANE_UB
-from repro_torch.core.lower_bounds import envelope
+from repro_torch.core.batch import (
+    ea_pruned_dtw_multi_batch,
+    ea_pruned_dtw_multi_batch_fused,
+    ea_pruned_dtw_persistent,
+    ea_pruned_dtw_persistent_fused,
+)
+from repro_torch.core.common import DEAD_LANE_UB, pad_lanes_to_blocks
+from repro_torch.core.lower_bounds import cascade_keogh_cumulative, envelope
 from repro_torch.search.cascade import cascade_lower_bounds
 from repro_torch.search.incumbents import IncumbentState, fold_min, initial_state
 from repro_torch.search.znorm import (
+    gather_norm_windows,
     sanitize_series,
     window_finite_mask,
     window_stats,
@@ -44,7 +55,6 @@ MULTI_VARIANTS = ("eapruned", "eapruned_nolb")
 ROUND_DRIVERS = ("host", "persistent")
 GATHER_MODES = ("fused", "slab")
 
-_PERSISTENT = "ROADMAP.md Queue 1 item 5, 'Persistent sweep'"
 _SLAB_COUNTERS = "ROADMAP.md Queue 1 item 6, 'Slab arms, counters, baselines'"
 
 
@@ -129,14 +139,6 @@ def make_plan(
         raise NotImplementedError(
             f"variant {variant!r} is not ported yet ({_SLAB_COUNTERS})"
         )
-    if rounds == "persistent":
-        raise NotImplementedError(
-            f"rounds='persistent' is not ported yet ({_PERSISTENT})"
-        )
-    if gather == "slab":
-        raise NotImplementedError(
-            f"gather='slab' is not ported yet ({_SLAB_COUNTERS})"
-        )
     if with_info:
         raise NotImplementedError(
             f"with_info stats rounds are not ported yet ({_SLAB_COUNTERS})"
@@ -149,6 +151,22 @@ def make_plan(
         warm_start=int(warm_start), gather=gather,
         slab_budget=None if slab_budget is None else int(slab_budget),
     )
+
+
+def _ensure_slab_budget(plan: SearchPlan, n_lanes: int, what: str) -> None:
+    """A slab must fit ``plan.slab_budget``; raises before any O(K·l)
+    allocation. Fused paths never call this: not building the slab is the
+    point."""
+    if plan.slab_budget is None:
+        return
+    need = int(n_lanes) * int(plan.length) * 4  # float32 windows
+    if need > plan.slab_budget:
+        raise guards.SearchInputError(
+            f"{what}: gather='slab' would materialize {need} bytes of "
+            f"candidate windows ({n_lanes} lanes x {plan.length} samples) "
+            f"but slab_budget={plan.slab_budget}; use gather='fused' or "
+            "raise the budget"
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -245,13 +263,35 @@ class SearchStats(NamedTuple):
 
 
 def _dtw_round_fused(plan, prep, pq, starts, ub_lanes, *, use_cb: bool):
-    """One fused-gather EAPrunedDTW round over ``(Q, K)`` lane starts."""
+    """One fused-gather EAPrunedDTW round over ``(Q, K)`` lane starts:
+    kernel A slices and normalizes the windows itself."""
     return ea_pruned_dtw_multi_batch_fused(
         pq.qn, prep.ref, starts, ub_lanes, window=plan.window,
         mu=prep.mu, sigma=prep.sigma,
         envelopes=(pq.u, pq.low) if use_cb else None,
         band_width=plan.band_width, **plan.knobs(),
     )
+
+
+def _dtw_round_slab(plan, prep, pq, starts, ub_lanes, *, use_cb: bool):
+    """One slab EAPrunedDTW round: the windows gathered into a
+    ``(Q, K, l)`` slab, with the ``cb`` slab beside it when ``use_cb``, for
+    kernel D."""
+    cand = gather_norm_windows(prep.ref, starts, plan.length, prep.mu,
+                               prep.sigma)
+    cb = None
+    if use_cb:
+        cb = cascade_keogh_cumulative(cand, pq.u[:, None, :],
+                                      pq.low[:, None, :])
+    return ea_pruned_dtw_multi_batch(
+        pq.qn, cand, ub_lanes, window=plan.window,
+        band_width=plan.band_width, cb=cb, **plan.knobs(),
+    )
+
+
+def _dtw_round(plan, prep, pq, starts, ub_lanes, *, use_cb: bool):
+    fn = _dtw_round_fused if plan.gather == "fused" else _dtw_round_slab
+    return fn(plan, prep, pq, starts, ub_lanes, use_cb=use_cb)
 
 
 def _dead_or(live: torch.Tensor, ub: torch.Tensor) -> torch.Tensor:
@@ -285,7 +325,9 @@ def warm_prepass(
     pre_lbs = lb_sorted[:, :pre]
     fin = torch.isfinite(pre_lbs)
     ub_pre = _dead_or(fin & (pre_lbs < state0.ub[:, None]), state0.ub)
-    d0 = _dtw_round_fused(plan, prep, pq, pre_starts, ub_pre, use_cb=False)
+    if plan.gather != "fused":
+        _ensure_slab_budget(plan, nq * pre, "warm_prepass")
+    d0 = _dtw_round(plan, prep, pq, pre_starts, ub_pre, use_cb=False)
     d0 = torch.where(fin, d0, float("inf"))
     state, _ = fold_min(state0, pre_starts, d0, offset=offset)
     return state, pre
@@ -324,6 +366,8 @@ def run_host_rounds(
     active = torch.ones(nq, dtype=torch.bool, device=dev)
     if plan.use_lb:
         active = lb_p[:, 0] < state.ub
+    if plan.gather != "fused":
+        _ensure_slab_budget(plan, nq * batch, "run_host_rounds")
     r = torch.zeros(nq, dtype=torch.int64, device=dev)
     # ``lanes`` counts distinct candidates examined: round 0 re-submits the
     # prepass candidates, so the prepass stands alone only for a query that
@@ -337,8 +381,7 @@ def run_host_rounds(
         lbs_b = lb_p.gather(1, idx)
         ub_lanes = _dead_or(active[:, None] & (lbs_b < state.ub[:, None]),
                             state.ub)
-        d = _dtw_round_fused(plan, prep, pq, starts, ub_lanes,
-                             use_cb=plan.use_cb)
+        d = _dtw_round(plan, prep, pq, starts, ub_lanes, use_cb=plan.use_cb)
         d = torch.where(torch.isfinite(lbs_b) & active[:, None], d,
                         float("inf"))
         state, _ = fold_min(state, starts, d, offset=offset)
@@ -362,16 +405,87 @@ def run_host_rounds(
     )
 
 
+# ---------------------------------------------------------------------------
+# persistent-sweep executor
+# ---------------------------------------------------------------------------
+
+def run_persistent(
+    plan: SearchPlan,
+    prep: PreparedRef,
+    pq: PreparedQueries,
+    order: torch.Tensor,
+    lb_sorted: torch.Tensor,
+    state0: IncumbentState,
+) -> tuple[IncumbentState, SearchStats]:
+    """One launch for the whole workload (DESIGN.md §2.5): kernel C over
+    the reference (``gather="fused"``), or kernel E over the ``(Q, n_win,
+    l)`` best-first slab (``gather="slab"``).
+
+    ``plan.warm_start > 0`` runs the same :func:`warm_prepass` as the host
+    driver and seeds the sweep with its bounds; the sweep takes no ``best``
+    seed (an unbeaten seed comes back with start -1), so its result is
+    folded against the prepass state and a prepass winner keeps its start.
+    ``rounds`` counts dispatches: 1, or 2 with the prepass. ``lanes`` is
+    ``blocks × block_k`` clamped to the windows; on CUDA ``blocks`` may
+    differ from ``repro``'s and between runs (``kernels.ops``), the winner
+    does not.
+    """
+    nq, n_win = order.shape
+    state0, pre = warm_prepass(plan, prep, pq, order, lb_sorted, state0)
+    # The one place lanes are padded to block_k (+inf bounds, which never
+    # run), as repro pads them: the kernels take a ragged final block too,
+    # so this only keeps repro's slab accounting.
+    lb_p, order_p, _ = pad_lanes_to_blocks(plan.block_k, lb_sorted, order)
+    env = (pq.u, pq.low) if plan.use_cb else None
+    if plan.gather == "fused":
+        bd, bs, blocks = ea_pruned_dtw_persistent_fused(
+            pq.qn, prep.ref, lb_p, order_p, state0.ub, window=plan.window,
+            mu=prep.mu, sigma=prep.sigma, band_width=plan.band_width,
+            envelopes=env, **plan.knobs(),
+        )
+    else:
+        _ensure_slab_budget(plan, nq * order_p.shape[1], "run_persistent")
+        cand = gather_norm_windows(prep.ref, order_p, plan.length, prep.mu,
+                                   prep.sigma)                # (Q, k_pad, l)
+        bd, bs, blocks = ea_pruned_dtw_persistent(
+            pq.qn, cand, lb_p, order_p, state0.ub, window=plan.window,
+            band_width=plan.band_width, envelopes=env, **plan.knobs(),
+        )
+    # Strict-improvement fold against the (possibly prepass-seeded) state:
+    # unbeaten seeds keep their start, a tighter sweep result adopts its.
+    improved = bd < state0.ub
+    state = IncumbentState(
+        ub=torch.where(improved, bd, state0.ub),
+        best=torch.where(improved, bs.to(state0.best.dtype), state0.best),
+    )
+    # Visited blocks are a best-first prefix per query, so only the final
+    # padded block can hold non-candidates: clamp to n_win.
+    lanes = torch.clamp_max(blocks.to(torch.int64) * plan.block_k, n_win)
+    no_info = torch.full((nq,), -1, dtype=torch.int64, device=order.device)
+    return state, SearchStats(
+        rounds=torch.full((nq,), 2 if pre else 1, dtype=torch.int64,
+                          device=order.device),
+        lanes=lanes,
+        lb_pruned=n_win - lanes,
+        rows=no_info,
+        cells=no_info,
+    )
+
+
 def _offline_search_impl(
     ref: torch.Tensor, queries: torch.Tensor, ub_init, plan: SearchPlan
 ) -> tuple[IncumbentState, SearchStats, torch.Tensor]:
-    """prepare → cascade → host rounds: the offline core behind
-    ``multi_query_search`` and ``subsequence_search`` (Q=1). Returns
-    ``(IncumbentState, SearchStats, n_quar)``."""
+    """prepare → cascade → host rounds or persistent sweep: the offline
+    core behind ``multi_query_search`` and ``subsequence_search`` (Q=1).
+    Returns ``(IncumbentState, SearchStats, n_quar)``."""
     prep = prepare_ref(plan, ref)
     pq = prepare_queries(plan, queries)
     order, lb_sorted = cascade(plan, prep, pq.qn)
     state0 = initial_state(pq.qn.shape[0], pq.qn.dtype, ub_init,
                            best_dtype=order.dtype, device=ref.device)
-    state, stats = run_host_rounds(plan, prep, pq, order, lb_sorted, state0)
+    if plan.rounds == "persistent":
+        state, stats = run_persistent(plan, prep, pq, order, lb_sorted, state0)
+    else:
+        state, stats = run_host_rounds(plan, prep, pq, order, lb_sorted,
+                                       state0)
     return state, stats, prep.n_quar

@@ -310,8 +310,6 @@ def test_make_plan_validation_matches_repro(kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(rounds="persistent"), "item 5"),
-    (dict(gather="slab"), "item 6"),
     (dict(with_info=True), "item 6"),
     (dict(variant="full"), "item 6"),
     (dict(variant="pruned"), "item 6"),

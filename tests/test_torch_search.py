@@ -125,6 +125,3 @@ def test_multi_query_input_guards():
     with pytest.raises(guards.SearchInputError):
         multi_query_search(ref, queries, LENGTH, WINDOW, variant="full",
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        multi_query_search(ref, queries, LENGTH, WINDOW, rounds="persistent",
-                           device="cpu")

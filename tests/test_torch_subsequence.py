@@ -59,7 +59,7 @@ def test_subsequence_nan_burst():
 def test_subsequence_unported_paths_raise():
     ref, query = _data("ECG")
     for kw in (dict(variant="full"), dict(variant="pruned"),
-               dict(with_info=True), dict(gather="slab")):
+               dict(with_info=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             subsequence_search(ref, query, LENGTH, WINDOW, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="multivariate"):
