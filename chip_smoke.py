@@ -28,7 +28,9 @@ Drives ``repro_torch`` (never JAX, never ``repro``) on ``cuda:0``:
      just before and read just after; each winner's distance is recomputed
      with the DP oracle, and each search run once more must give the same
      bits; the persistent search must launch C once, B once and A never,
-     and find the host rounds' ``best_start``. Then the slab arms at the
+     and find the host rounds' ``best_start``; the host rounds run a third
+     time with CUDA events around every launch of kernel A, to split their
+     wall into kernel A and the host loop. Then the slab arms at the
      same N, each against its fused counterpart: host rounds with
      ``gather="slab"`` (kernel D) and the persistent sweep with
      ``gather="slab"`` (kernel E, over a 33 GB slab; its allocation peak is
@@ -36,7 +38,10 @@ Drives ``repro_torch`` (never JAX, never ``repro``) on ``cuda:0``:
   5. the same search at N = 50,000, l = 256, w = 25, Q = 4 on the card and
      with ``device="cpu"``, for both drivers and both EA variants;
   6. per-kernel times with CUDA events beside the plain versions' times and
-     the bounds (C and E: the whole cold sweep of phase 3);
+     the bounds (C and E: the whole cold sweep of phase 3), kernel A's time
+     per DP row, each DTW kernel's share of its bound, the lanes C and E
+     keep in flight and run per query, and the host-rounds wall per round
+     less kernel A's time;
   7. a ``{"kernels": [...]}`` line; the last line is
      ``{"ok": true, "device": {...}}``.
 
@@ -74,9 +79,11 @@ CE_CHUNK = 32_768
 TOL_B = 1e-4
 # Kernel A: the closed-form row P + cummin(d - P) cancels. P, the row's
 # running cost sum across the band, reaches ~1e3-1e4 at l = 1024, w = 102,
-# where a distance is ~10, so one ulp of P is ~1e-4 of the distance, and
-# the kernel (tree-order block scans, FMAs) and the plain version
-# (sequential cumsum) round P differently on every row: 1e-3 relative. A
+# where a distance is ~10, so one ulp of P is ~1e-4 of the distance. The
+# kernel adds P in Sklansky order over the band; the plain version's
+# torch.cumsum on the card does so only when it scans more than 2^17 rows
+# at once, and in chunks of 32 columns (or more) in smaller batches, so the
+# two round P differently on every row of a small batch: 1e-3 relative. A
 # lane whose distance lies within that of its ub may abandon on one side.
 TOL_A = 1e-3
 # Kernels C and E against their plain version, and the persistent search
@@ -266,7 +273,8 @@ def phase_kernel_a(torch, prep, pq, plan, order, lb_sorted) -> dict:
                 f"{int(cells.sum())} cells")
             if use_cb:
                 rounds.append({"args": args, "env": env, "cells": int(cells.sum()),
-                               "lanes": k.numel(), "bw": bw, "out": k})
+                               "rows": int(rows.sum()), "lanes": k.numel(),
+                               "bw": bw, "out": k})
                 d_fold = torch.where(torch.isfinite(lbs), k, float("inf"))
             else:
                 rounds[-1]["out_nocb"] = k
@@ -403,10 +411,11 @@ def phase_kernel_ce(torch, prep, pq, plan, order, lb_sorted) -> dict:
     env = dict(u=pq.u.contiguous(), low=pq.low.contiguous(), use_cb=use_cb)
     fused = descriptors(k)
     qn, _, lb, s32 = fused[:4]
+    in_flight = {"C": ops.persistent_grid(m, bw, use_cb, fused=True),
+                 "E": ops.persistent_grid(m, bw, use_cb, fused=False)}
     say(f"[3 kernels C, E] whole best-first order: {k} lanes a query, "
-        f"use_cb={use_cb}; kernel C keeps "
-        f"{ops.persistent_grid(m, bw, use_cb, fused=True)} thread blocks "
-        f"resident, kernel E {ops.persistent_grid(m, bw, use_cb, fused=False)}")
+        f"use_cb={use_cb}; lanes in flight: kernel C {in_flight['C']}, "
+        f"kernel E {in_flight['E']} (one warp a lane)")
 
     def plain_c(seed):
         t0 = time.perf_counter()
@@ -418,6 +427,7 @@ def phase_kernel_ce(torch, prep, pq, plan, order, lb_sorted) -> dict:
     c_call = lambda seed: ops.dtw_ea_persistent_fused(*fused, seed, w, m,
                                                       block_k=bk, **env)
     c = {"cold": c_call(cold)}
+    ran = {"C": ops.dtw_ea_persistent_fused.lanes_run.tolist()}
     c["warm"] = c_call(c["cold"][0] * 1.01)
     plain_s = {}
     for name in ("cold", "warm"):
@@ -451,6 +461,8 @@ def phase_kernel_ce(torch, prep, pq, plan, order, lb_sorted) -> dict:
         seed = cold if name == "cold" else c["cold"][0] * 1.01
         e[name] = e_call(seed)
         torch.cuda.synchronize()
+        if name == "cold":
+            ran["E"] = ops.dtw_ea_persistent.lanes_run.tolist()
         same_ce = (torch.equal(c[name][0], e[name][0])
                    and torch.equal(c[name][1], e[name][1]))
         say(f"[3 kernel E] whole order, {name} seed: C equals E bit for bit: "
@@ -487,6 +499,7 @@ def phase_kernel_ce(torch, prep, pq, plan, order, lb_sorted) -> dict:
     del slab
     torch.cuda.empty_cache()
     return {"c_ms": c_ms, "e_ms": e_ms, "c_plain_ms": plain_s["cold"] * 1e3,
+            "in_flight": in_flight, "ran": ran,
             "e_plain_ms": plain_s["E"] * 1e3, "cells": cells,
             "live": int(live.sum()), "length": m,
             "env_floats": qn.numel() + 2 * env["u"].numel() + 4 * nq,
@@ -617,6 +630,48 @@ def phase_end_to_end(torch, cfg, ref, queries, rounds: str,
     return {"wall_s": wall, "launches": launches, "res": res}
 
 
+def host_loop_split(torch, cfg, ref, queries) -> dict:
+    """The host-rounds search once more, with CUDA events around every
+    launch of kernel A (``core.batch`` sees a stand-in for ``kernels.ops``
+    that records them): kernel A's time summed over the search, and what
+    the rest of the wall costs per round. Not a counted run."""
+    from repro_torch.core import batch
+    from repro_torch.kernels import ops
+
+    events = []
+    kernel_a = ops.dtw_ea_multi_fused
+
+    class TimedOps:
+        def __getattr__(self, name):
+            return getattr(ops, name)
+
+        @staticmethod
+        def dtw_ea_multi_fused(*args, **kwargs):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = kernel_a(*args, **kwargs)
+            ev[1].record()
+            events.append(ev)
+            return out
+
+    batch.ops = TimedOps()
+    try:
+        _, wall, _ = counted_search(torch, ref, queries, cfg, rounds="host")
+    finally:
+        batch.ops = ops
+    a_ms = sum(s.elapsed_time(e) for s, e in events)
+    launches = len(events)
+    loop_ms = wall * 1e3 - a_ms
+    say(f"[4 host loop] host rounds with events around kernel A: "
+        f"{wall:.3f} s wall, {launches} launches of A, A {a_ms:.1f} ms in all "
+        f"({a_ms / launches:.4f} ms a launch); the rest {loop_ms:.1f} ms "
+        f"({loop_ms / launches:.4f} ms a round, "
+        f"{100 * loop_ms / (wall * 1e3):.1f}% of the wall)")
+    return {"wall_s": wall, "a_ms": a_ms, "launches": launches,
+            "loop_ms_per_round": loop_ms / launches}
+
+
 def phase_slab_arms(torch, cfg, ref, queries, host: dict, sweep: dict) -> dict:
     """The slab arms end to end at the full N: host rounds with
     ``gather="slab"`` (kernel D, an (8, 256, 1024) slab a round) against
@@ -708,7 +763,8 @@ def dtw_bound_ms(cells: int, nbytes: int) -> float:
     return max(FLOPS_PER_CELL * cells / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3
 
 
-def phase_times(torch, kb: dict, ka: dict, kd: dict, kce: dict) -> list[dict]:
+def phase_times(torch, kb: dict, ka: dict, kd: dict, kce: dict,
+                loop: dict) -> list[dict]:
     from repro_torch.kernels import ops
     from repro_torch.kernels.dtw_band import dtw_ea_fused_plain, dtw_ea_plain
     from repro_torch.kernels.lb_keogh import lb_all_windows_plain
@@ -725,6 +781,7 @@ def phase_times(torch, kb: dict, ka: dict, kd: dict, kce: dict) -> list[dict]:
     say(f"[6 times] kernel B: {b_ms:.3f} ms (plain {b_plain:.1f} ms), bound "
         f"{b_bound:.3f} ms by operations ({b_ops:.3e} flops)")
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     a_ms, a_plain, a_bound = [], [], []
     for i, r in enumerate(ka["rounds"]):
         a_ms.append(cuda_ms(lambda: ops.dtw_ea_multi_fused(*r["args"], **r["env"]), 5))
@@ -733,7 +790,8 @@ def phase_times(torch, kb: dict, ka: dict, kd: dict, kce: dict) -> list[dict]:
         nbytes = 4 * (r["lanes"] * (m + 5) + 3 * r["args"][0].numel())
         a_bound.append(dtw_bound_ms(r["cells"], nbytes))
         say(f"  kernel A round {i}: {a_ms[-1]:.3f} ms (plain {a_plain[-1]:.1f} ms), "
-            f"bound {a_bound[-1]:.4f} ms ({r['cells']} cells)")
+            f"bound {a_bound[-1]:.4f} ms ({r['cells']} cells); {r['rows']} DP "
+            f"rows, {a_ms[-1] * 1e6 * sms / r['rows']:.1f} ns of one SM a row")
 
     # Kernel D: the three rounds' slabs with the host cb slab; each lane
     # reads its window and cb rows (2m floats) and its ub, writes one float.
@@ -763,6 +821,16 @@ def phase_times(torch, kb: dict, ka: dict, kd: dict, kce: dict) -> list[dict]:
     say(f"  kernel E (whole order): {e_ms:.3f} ms (plain {e_plain:.1f} ms), "
         f"bound {e_bound:.4f} ms")
     mean = lambda xs: sum(xs) / len(xs)
+    shares = {"A": mean(a_bound) / mean(a_ms), "D": mean(d_bound) / mean(d_ms),
+              "C": c_bound / c_ms, "E": e_bound / e_ms}
+    say("  share of the bound (bound ms / ms): " + ", ".join(
+        f"kernel {k} {100 * v:.2f}%" for k, v in shares.items()))
+    for k in ("C", "E"):
+        say(f"  kernel {k}: {kce['in_flight'][k]} lanes in flight; lanes run "
+            f"per query (cold whole-order sweep): {kce['ran'][k]}")
+    say(f"  host rounds: {loop['launches']} rounds, wall per round less "
+        f"kernel A {loop['loop_ms_per_round']:.4f} ms, kernel A "
+        f"{loop['a_ms'] / loop['launches']:.4f} ms a round")
     return [
         {"name": "dtw_ea_multi_fused", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/dtw_ea_fused.cu",
@@ -837,12 +905,14 @@ def main() -> int:
     del order, lb_sorted
     host = timed("phase 4 host rounds", phase_end_to_end, torch, cfg, ref,
                  queries, "host")
+    loop = timed("phase 4 host loop", host_loop_split, torch, cfg, ref,
+                 queries)
     sweep = timed("phase 4 persistent", phase_end_to_end, torch, cfg, ref,
                   queries, "persistent", host)
     slab = timed("phase 4 slab arms", phase_slab_arms, torch, cfg, ref,
                  queries, host, sweep)
     timed("phase 5", phase_cross_check, torch)
-    kernels = timed("phase 6", phase_times, torch, kb, ka, kd, kce)
+    kernels = timed("phase 6", phase_times, torch, kb, ka, kd, kce, loop)
     # Launches on the path that runs each kernel: host rounds (A, B), the
     # persistent sweep (C), the slab arms (D, E).
     launches = dict(host["launches"])

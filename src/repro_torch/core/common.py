@@ -18,8 +18,9 @@ DEAD_LANE_UB = -1.0
 # Sigma floor for z-normalization of flat (constant) windows.
 EPS = 1e-8
 
-# Band alignment of the CUDA round kernel: one thread per band column, so
-# the band is padded to whole warps. Results do not depend on the band
+# Band alignment of the default band: one warp's width. The CUDA DTW
+# kernels hold the band in a warp's registers, padded to 32 * CPT columns
+# (kernels/ops.py::cols_per_thread). Results do not depend on the band
 # width while it is at least 2*window + 1.
 BAND_ALIGN = 32
 
@@ -94,9 +95,8 @@ def default_band_width(window: int, m: int) -> int:
     """Smallest warp-aligned band covering ``2*window + 1`` columns.
 
     ``repro`` aligns to the vector unit (128 lanes on a TPU, 8 elsewhere);
-    the CUDA round kernel runs one thread per band column, so the port
-    aligns to ``BAND_ALIGN`` = 32 (one warp), never past ``m``. The CPU
-    path uses the same default so both see the same band.
+    the port aligns to ``BAND_ALIGN`` = 32 (one warp's width), never past
+    ``m``. The CPU path uses the same default so both see the same band.
     """
     full = min(2 * int(window) + 1, int(m))
     return min(int(m), -(-full // BAND_ALIGN) * BAND_ALIGN)

@@ -5,48 +5,66 @@
 // in both its forms: fused=True (kernel C, wrapper
 // repro/kernels/ops.py::dtw_ea_persistent_fused: each lane slices and
 // z-normalizes ref[start : start + m] with its (mu, sg)) and fused=False
-// (kernel E, wrapper ops.py::dtw_ea_persistent: each lane copies its row of
+// (kernel E, wrapper ops.py::dtw_ea_persistent: each lane reads its row of
 // a pre-gathered (Q, K, m) window slab). One template, two window loaders.
-// With use_cb the cb suffix is built in the block from the query's
-// envelope, in both forms. Outputs per query: best_dist, best_start (-1
+// With use_cb the warp builds the cb suffix from the query's envelope, in
+// both forms. Outputs per query: best_dist, best_start (-1
 // while the seed ub_init is unbeaten) and blocks, the work metric.
 //
 // The TPU design runs each query's candidate blocks as a sequential grid
 // axis with the incumbent in SMEM. On the card that would leave Q thread
 // blocks for 132 SMs. Instead:
-//  * Grid: persistent, sized by the occupancy query (blocks per SM times
-//    SMs, at most one per lane). A thread block runs one lane at a time
-//    with the shared DP row (dtw_band.cuh), drawing lanes in best-first
-//    order from per-query atomic counters and walking the queries round
-//    robin, so all Q advance together.
+//  * Grid: persistent, and it counts warps: as many thread blocks of a few
+//    warps as the occupancy query keeps resident (capped at one warp per
+//    lane). Each warp runs one lane at a time with the shared DP row
+//    (dtw_band.cuh: one warp per lane, the band in registers), drawing
+//    lanes in best-first order from per-query atomic counters and walking
+//    the queries round robin, so all Q advance together. The warp's lane 0
+//    runs the counter, the gate and the done flag and broadcasts the lane
+//    it drew by __shfl_sync; no block barrier sits between lanes, so a warp
+//    never waits for the other warps of its block.
 //  * Incumbent: one 64-bit word per query in global memory,
 //    (float bits of the distance) << 32 | rank. The seed ub_init has rank 0
 //    and lane j of the best-first order rank j + 1. Distances are >= 0, so
 //    their bits order as unsigned integers and one atomicMin folds a lane.
 //  * Gate: lane j runs iff (lb_j, j + 1) is below the incumbent word; +inf
 //    bounds never run. Bounds arrive sorted, so the first lane to fail
-//    marks its query done: every later lane would fail too. A lane runs
-//    against the incumbent's distance as it reads it when it starts.
+//    marks its query done: every later lane would fail too.
+//  * Re-read: a lane starts against the incumbent's distance as the gate
+//    read it, and every kRereadRows rows takes the smaller of the bound it
+//    holds and the distance it last read from the word (lane 0 issues a
+//    volatile 64-bit load one period ahead and broadcasts it), so a lane
+//    that started before a fold abandons by it.
 //  * Fold: a lane that finishes does atomicMin(word, (d, j + 1)).
 //  * Outputs: best_dist is the word's distance (the seed itself at rank 0),
 //    best_start = starts[rank - 1] or -1, blocks = max_j_run / block_k + 1
-//    or 0 when no lane ran.
+//    or 0 when no lane ran; the state keeps each query's count of lanes
+//    that passed the gate.
 //  * Kernel C checks each lane's start: a lane out of [0, N - m] is never
 //    read and never runs; a separate pass counts them all per query, so
 //    the wrapper can raise.
 //
 // Why this is repro's winner: the sequential strict fold with first-lane
-// ties returns the lexicographic minimum of (d, index) over all lanes
-// against the seed, which wins ties. The lane holding that minimum always
-// passes the gate (its key is at most the minimum, which no other lane
-// holds), runs with a ub no lower than its own distance and so finishes,
-// and folds it; its distance does not depend on the ub it ran under
-// (dtw_band.cuh). Only the work differs: blocks, and with it the search's
-// lanes and lb_pruned, depend on the order in which lanes finish and can
-// change from run to run.
+// ties returns the lexicographic minimum (d*, rank*) of (d, index) over
+// all lanes against the seed, which wins ties. The incumbent word only
+// falls, and only to a key some lane has already folded, (d, rank) with
+// d >= d* and, at d = d*, rank > rank*. So the lane holding (d*, rank*)
+// always passes the gate (its key is at most (d*, rank*), which no other
+// lane holds), and every bound it ever runs under, at the gate or at a
+// re-read, is at least d*: it finishes, and folds. Its distance does not
+// depend on the bounds it ran under (dtw_band.cuh), so it folds repro's
+// bits. Only the work differs: blocks, and with it the search's lanes and
+// lb_pruned, depend on the order in which lanes finish and can change from
+// run to run.
 //
-// Bound: operations, as kernel A (barrier-bound rows), on the lanes the
-// sweep runs; bytes are the lanes' m floats of reference (C) or slab (E).
+// Bound: operations, as kernel A (the row's instruction stream), on the lanes
+// the sweep runs; bytes are the lanes' m floats of reference (C) or slab
+// (E). The earlier design ran one thread block per lane with nine
+// block-wide barriers a row and read the incumbent only when a lane
+// started; E, which staged its slab row in shared memory, kept fewer
+// blocks resident than C. Now C and E differ only in the loader of the
+// window's next columns, and registers, not shared memory, set the lanes
+// each keeps in flight.
 #include <stdint.h>
 
 #include "dtw_band.cuh"
@@ -57,8 +75,10 @@ using namespace dtw_band;
 typedef unsigned long long u64;
 
 // Per-query int32 state: next lane to draw, done flag, largest lane that
-// ran, lanes with a start out of range.
-enum { kNext = 0, kDone = 1, kMaxRun = 2, kBad = 3, kStateInts = 4 };
+// ran, lanes with a start out of range, lanes that passed the gate.
+enum { kNext = 0, kDone = 1, kMaxRun = 2, kBad = 3, kRan = 4, kStateInts = 5 };
+
+constexpr int kWarps = 4;  // lanes (warps) a thread block, at most
 
 // Order key of a distance or bound: its float bits, with -0 as +0.
 __device__ __forceinline__ unsigned dist_key(float d) {
@@ -76,6 +96,7 @@ __global__ void persistent_init(const float* __restrict__ ub_init, u64* inc,
   st[kDone] = !(seed >= 0.f);  // a negative seed admits no lane
   st[kMaxRun] = -1;
   st[kBad] = 0;
+  st[kRan] = 0;
 }
 
 __global__ void count_bad_starts(const int* __restrict__ starts, int* state,
@@ -90,8 +111,8 @@ __global__ void count_bad_starts(const int* __restrict__ starts, int* state,
   }
 }
 
-template <bool kFused>
-__global__ void persistent_sweep(
+template <int CPT, bool kFused>
+__global__ void __launch_bounds__(kWarps * 32) persistent_sweep(
     const float* __restrict__ queries,  // (Q, n) z-normalized queries
     const float* __restrict__ ref,      // C: (N,) sanitized reference
     const float* __restrict__ mu,       // C: (Q * K,) window mean per lane
@@ -104,51 +125,41 @@ __global__ void persistent_sweep(
     u64* inc, int* state, int n_ref, int nq, int K, int n, int m,
     int window, int bw, int use_cb) {
   extern __shared__ float smem[];
-  float* win = smem;                       // m: normalized window
-  float* cb = win + m;                     // m when use_cb
-  float* band = cb + (use_cb ? m : 0);     // blockDim.x: previous row
-  __shared__ float fbuf[32];
-  __shared__ int ibuf[32];
-  __shared__ float total;
-  __shared__ int s_lane;
-  __shared__ float s_ub;
-  const Scratch s{fbuf, ibuf, &total};
-  const int tid = threadIdx.x;
+  const int t = threadIdx.x & 31, wib = threadIdx.x >> 5;
+  float* cb = use_cb ? smem + (size_t)wib * m : nullptr;
 
-  int q = blockIdx.x % nq;
+  const long long warp_id = (long long)blockIdx.x * (blockDim.x >> 5) + wib;
+  int q = (int)(warp_id % nq);
   int idle = 0;  // queries in a row found done
   while (idle < nq) {
-    if (tid == 0) {
-      int lane = -1;  // -1: the query is done; -2: skip an unreadable lane
-      float ubq = 0.f;
+    int j = -1;  // -1: the query is done; -2: skip an unreadable lane
+    float ubq = 0.f;
+    if (t == 0) {
       volatile int* st = state + q * kStateInts;
       if (!st[kDone]) {
-        const int j = atomicAdd((int*)&st[kNext], 1);
-        if (j >= K) {
+        const int jj = atomicAdd((int*)&st[kNext], 1);
+        if (jj >= K) {
           st[kDone] = 1;
         } else {
-          const long long l = (long long)q * K + j;
+          const long long l = (long long)q * K + jj;
           const float lbj = lb[l];
           const u64 w = *(volatile u64*)&inc[q];
-          const u64 key = ((u64)dist_key(lbj) << 32) | (unsigned)(j + 1);
+          const u64 key = ((u64)dist_key(lbj) << 32) | (unsigned)(jj + 1);
           if (!(lbj < INFINITY) || key >= w) {
             st[kDone] = 1;  // sorted bounds: every later lane fails too
           } else if (kFused && (starts[l] < 0 || starts[l] > n_ref - m)) {
-            lane = -2;  // counted by count_bad_starts, never read
+            j = -2;  // counted by count_bad_starts, never read
           } else {
-            lane = j;
+            j = jj;
             ubq = __uint_as_float((unsigned)(w >> 32));
-            atomicMax((int*)&st[kMaxRun], j);
+            atomicMax((int*)&st[kMaxRun], jj);
+            atomicAdd((int*)&st[kRan], 1);
           }
         }
       }
-      s_lane = lane;
-      s_ub = ubq;
     }
-    __syncthreads();
-    const int j = s_lane;
-    const float ubq = s_ub;
-    __syncthreads();
+    j = __shfl_sync(kFull, j, 0);
+    ubq = __shfl_sync(kFull, ubq, 0);
     const int qq = q;
     q = q + 1 == nq ? 0 : q + 1;
     if (j == -1) {
@@ -159,22 +170,20 @@ __global__ void persistent_sweep(
     if (j < 0) continue;
 
     const long long l = (long long)qq * K + j;
+    const float* qrow = queries + (size_t)qq * n;
+    const float* uq = upper + (size_t)qq * m;
+    const float* lq = lower + (size_t)qq * m;
+    float d;
     if (kFused) {
-      const float* x = ref + starts[l];
-      const float muv = mu[l], sgv = sg[l];
-      for (int i = tid; i < m; i += blockDim.x) win[i] = (x[i] - muv) / sgv;
+      const RefWindow win{ref + starts[l], mu[l], sg[l], m};
+      if (use_cb) cb_suffix(win, uq, lq, cb, m, t);
+      d = dtw_lane<CPT, true>(qrow, win, cb, ubq, &inc[qq], n, m, window, bw);
     } else {
-      const float* x = windows + l * m;
-      for (int i = tid; i < m; i += blockDim.x) win[i] = x[i];
+      const SlabWindow win{windows + l * m, m};
+      if (use_cb) cb_suffix(win, uq, lq, cb, m, t);
+      d = dtw_lane<CPT, true>(qrow, win, cb, ubq, &inc[qq], n, m, window, bw);
     }
-    __syncthreads();
-    if (use_cb) {
-      cb_suffix(win, upper + (size_t)qq * m, lower + (size_t)qq * m, cb, m, s);
-    }
-    const float d = dtw_lane(queries + (size_t)qq * n, win,
-                             use_cb ? cb : nullptr, band, ubq, n, m, window,
-                             bw, s);
-    if (tid == 0 && d < INFINITY) {
+    if (t == 0 && d < INFINITY) {
       atomicMin(&inc[qq], ((u64)dist_key(d) << 32) | (unsigned)(j + 1));
     }
   }
@@ -195,16 +204,17 @@ __global__ void persistent_finish(
   blocks[q] = max_run >= 0 ? max_run / block_k + 1 : 0;
 }
 
-// The persistent grid: as many thread blocks as stay resident on the card
-// at once (the occupancy query), with `threads` and `smem` per block.
-template <bool kFused>
-cudaError_t resident_grid(int m, int bw, int use_cb, int* threads,
-                          size_t* smem, long long* grid) {
-  *threads = ((bw + 31) / 32) * 32;
-  *smem = ((size_t)m * (use_cb ? 2 : 1) + *threads) * sizeof(float);
+// The persistent grid: as many thread blocks of `warps` warps as stay
+// resident on the card at once (the occupancy query), with `smem` bytes
+// each; its lanes in flight are grid * warps.
+template <int CPT, bool kFused>
+cudaError_t resident_grid(int m, int use_cb, int* warps, size_t* smem,
+                          long long* grid) {
+  *warps = block_warps(kWarps, m, use_cb);
+  *smem = use_cb ? (size_t)*warps * m * sizeof(float) : 0;
   cudaError_t err;
   if (*smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(persistent_sweep<kFused>,
+    err = cudaFuncSetAttribute(persistent_sweep<CPT, kFused>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)*smem);
     if (err != cudaSuccess) return err;
@@ -214,27 +224,28 @@ cudaError_t resident_grid(int m, int bw, int use_cb, int* threads,
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, persistent_sweep<kFused>, *threads, *smem);
+      &per_sm, persistent_sweep<CPT, kFused>, *warps * 32, *smem);
   if (err != cudaSuccess) return err;
   *grid = (long long)(per_sm > 0 ? per_sm : 1) * sms;
   return cudaSuccess;
 }
 
-template <bool kFused>
+template <int CPT, bool kFused>
 int launch(const float* queries, const float* ref, const float* mu,
            const float* sg, const float* windows, const float* lb,
            const int* starts, const float* ub_init, const float* upper,
            const float* lower, float* best_dist, int* best_start, int* blocks,
            u64* inc, int* state, int n_ref, int nq, int K, int n, int m,
            int window, int bw, int use_cb, int block_k, cudaStream_t stream) {
-  int threads = 0;
+  int warps = 0;
   size_t smem = 0;
   long long grid = 0;
-  cudaError_t err = resident_grid<kFused>(m, bw, use_cb, &threads, &smem,
-                                          &grid);
+  cudaError_t err = resident_grid<CPT, kFused>(m, use_cb, &warps, &smem,
+                                               &grid);
   if (err != cudaSuccess) return (int)err;
   const long long lanes = (long long)nq * K;
-  if (grid > lanes) grid = lanes;
+  const long long need = (lanes + warps - 1) / warps;  // one warp a lane
+  if (grid > need) grid = need;
   if (grid < 1) grid = 1;
 
   const int qb = (nq + 127) / 128;
@@ -244,7 +255,7 @@ int launch(const float* queries, const float* ref, const float* mu,
     count_bad_starts<<<(unsigned)(cb_blocks < 4096 ? cb_blocks : 4096), 256, 0,
                        stream>>>(starts, state, lanes, K, n_ref, m);
   }
-  persistent_sweep<kFused><<<(unsigned)grid, threads, smem, stream>>>(
+  persistent_sweep<CPT, kFused><<<(unsigned)grid, warps * 32, smem, stream>>>(
       queries, ref, mu, sg, windows, lb, starts, upper, lower, inc, state,
       n_ref, nq, K, n, m, window, bw, use_cb);
   persistent_finish<<<qb, 128, 0, stream>>>(ub_init, starts, inc, state,
@@ -261,35 +272,66 @@ extern "C" int dtw_ea_persistent_fused_launch(
     const float* mu, const float* sg, const float* ub_init, const float* upper,
     const float* lower, float* best_dist, int* best_start, int* blocks,
     void* inc, int* state, int n_ref, int nq, int K, int n, int m, int window,
-    int bw, int use_cb, int block_k, void* stream) {
-  return launch<true>(queries, ref, mu, sg, nullptr, lb, starts, ub_init,
-                      upper, lower, best_dist, best_start, blocks, (u64*)inc,
-                      state, n_ref, nq, K, n, m, window, bw, use_cb, block_k,
-                      (cudaStream_t)stream);
+    int bw, int use_cb, int block_k, int cpt, void* stream) {
+  if (bw < 1 || bw > 32 * cpt) return (int)cudaErrorInvalidValue;
+#define DTW_C(C)                                                             \
+  case C:                                                                    \
+    return launch<C, true>(queries, ref, mu, sg, nullptr, lb, starts,        \
+                           ub_init, upper, lower, best_dist, best_start,     \
+                           blocks, (u64*)inc, state, n_ref, nq, K, n, m,     \
+                           window, bw, use_cb, block_k, (cudaStream_t)stream);
+  switch (cpt) {
+    DTW_CPT_CASES(DTW_C)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef DTW_C
 }
 
-// Kernel E: lanes copy their windows from the (Q, K, m) slab.
+// Kernel E: lanes read their windows from the (Q, K, m) slab.
 extern "C" int dtw_ea_persistent_launch(
     const float* queries, const float* windows, const float* lb,
     const int* starts, const float* ub_init, const float* upper,
     const float* lower, float* best_dist, int* best_start, int* blocks,
     void* inc, int* state, int nq, int K, int n, int m, int window, int bw,
-    int use_cb, int block_k, void* stream) {
-  return launch<false>(queries, nullptr, nullptr, nullptr, windows, lb, starts,
-                       ub_init, upper, lower, best_dist, best_start, blocks,
-                       (u64*)inc, state, 0, nq, K, n, m, window, bw, use_cb,
-                       block_k, (cudaStream_t)stream);
+    int use_cb, int block_k, int cpt, void* stream) {
+  if (bw < 1 || bw > 32 * cpt) return (int)cudaErrorInvalidValue;
+#define DTW_E(C)                                                             \
+  case C:                                                                    \
+    return launch<C, false>(queries, nullptr, nullptr, nullptr, windows, lb, \
+                            starts, ub_init, upper, lower, best_dist,        \
+                            best_start, blocks, (u64*)inc, state, 0, nq, K,  \
+                            n, m, window, bw, use_cb, block_k,               \
+                            (cudaStream_t)stream);
+  switch (cpt) {
+    DTW_CPT_CASES(DTW_E)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef DTW_E
 }
 
-// The thread blocks a launch of kernel C (`fused` != 0) or E keeps resident
-// before it caps them at the lane count.
-extern "C" int dtw_ea_persistent_grid(int fused, int m, int bw, int use_cb,
-                                      long long* grid) {
-  int threads = 0;
+// The lanes (warps) a launch of kernel C (`fused` != 0) or E keeps in
+// flight before it caps them at the lane count.
+extern "C" int dtw_ea_persistent_grid(int fused, int m, int use_cb, int cpt,
+                                      long long* lanes) {
+  int warps = 0;
   size_t smem = 0;
-  return (int)(fused ? resident_grid<true>(m, bw, use_cb, &threads, &smem, grid)
-                     : resident_grid<false>(m, bw, use_cb, &threads, &smem,
-                                            grid));
+  long long grid = 0;
+  cudaError_t err = cudaErrorInvalidValue;
+#define DTW_G(C)                                                             \
+  case C:                                                                    \
+    err = fused ? resident_grid<C, true>(m, use_cb, &warps, &smem, &grid)    \
+                : resident_grid<C, false>(m, use_cb, &warps, &smem, &grid);  \
+    break;
+  switch (cpt) {
+    DTW_CPT_CASES(DTW_G)
+    default:
+      break;
+  }
+#undef DTW_G
+  *lanes = grid * warps;
+  return (int)err;
 }
 
 extern "C" const char* dtw_ea_persistent_fused_error_string(int code) {

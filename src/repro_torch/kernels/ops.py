@@ -4,7 +4,10 @@ Each wrapper checks its tensors, then dispatches on their device: CPU
 tensors run the kernel's plain PyTorch version; CUDA tensors launch the
 kernel or raise. There is no fallback from the kernel to the plain version.
 Each wrapper counts its kernel launches in a plain int attribute,
-``<wrapper>.launches``, incremented only where it launches its kernel.
+``<wrapper>.launches``, incremented only where it launches its kernel. The
+two persistent wrappers also keep ``<wrapper>.lanes_run``: after a launch
+on the card, a ``(Q,)`` int32 tensor of the lanes of each query that passed
+the gate and ran (``None`` before the first).
 
   * ``dtw_ea_multi_fused`` — kernel A, one fused EAPrunedDTW round
     (``csrc/dtw_ea_fused.cu``; TPU kernel
@@ -24,10 +27,11 @@ Each wrapper counts its kernel launches in a plain int attribute,
 
 Signatures follow ``repro/kernels/ops.py``. The Pallas tiling knobs
 (``row_block``, ``ref_budget``, ``chunk``, and ``block_k`` of the round
-kernels) are accepted and change no result: the CUDA kernels run one
-thread block per lane with the row loop inside it, and keep the reference
-in device memory. In the persistent sweeps ``block_k`` sets the
-granularity of the ``blocks`` work metric.
+kernels) are accepted and change no result: the DTW kernels run one warp
+per lane with the band in its registers (``cols_per_thread`` columns a
+thread) and the row loop inside the warp, and keep the reference in device
+memory. In the persistent sweeps ``block_k`` sets the granularity of the
+``blocks`` work metric.
 """
 from __future__ import annotations
 
@@ -46,8 +50,9 @@ from repro_torch.kernels.dtw_band import (
 )
 from repro_torch.kernels.lb_keogh import lb_all_windows_plain
 
-# One thread per band column in the DTW kernels.
-MAX_BAND_THREADS = 1024
+# The widest band the DTW kernels hold: one warp, at most 32 columns in
+# each of its 32 threads' registers.
+MAX_BAND_WIDTH = 1024
 
 _COUNTERS = ("with_info counters are not ported yet (ROADMAP.md Queue 1 "
              "item 6, 'Slab arms, counters, baselines')")
@@ -107,12 +112,20 @@ def resolve_band(window: int, length: int, n_rows: int,
     return bw
 
 
-def _band_threads(bw: int) -> None:
-    if bw > MAX_BAND_THREADS:
+def cols_per_thread(bw: int) -> int:
+    """Band columns each of a warp's 32 threads holds for a band of ``bw``
+    columns: the smallest of 1, 2, 4, 8, 16 and 32 that covers it (8 at the
+    main path's ``bw = 224``). The DTW kernels are instantiated for these."""
+    bw = int(bw)
+    if bw > MAX_BAND_WIDTH:
         raise ValueError(
-            f"band_width {bw} > {MAX_BAND_THREADS}: the DTW kernels run one "
-            "thread per band column in one block"
+            f"band_width {bw} > {MAX_BAND_WIDTH}: the DTW kernels hold the "
+            "band in one warp's registers, at most 32 columns a thread"
         )
+    cpt = 1
+    while 32 * cpt < bw:
+        cpt *= 2
+    return cpt
 
 
 def dtw_ea_multi_fused(
@@ -182,18 +195,18 @@ def dtw_ea_multi_fused(
         )
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    _band_threads(bw)
+    cpt = cols_per_thread(bw)
     out = torch.empty((nq, k), dtype=torch.float32, device=dev)
     if nq * k == 0:
         return out
     launch, err = _lib("dtw_ea_fused", "dtw_ea_fused_launch",
-                       [_P] * 9 + [_I] * 8 + [_P])
+                       [_P] * 9 + [_I] * 9 + [_P])
     code = launch(
         queries.data_ptr(), ref.data_ptr(), starts.data_ptr(), mu.data_ptr(),
         sg.data_ptr(), ub.data_ptr(),
         u.data_ptr() if use_cb else None, low.data_ptr() if use_cb else None,
         out.data_ptr(), ref.shape[0], nq, k, n, m, window, bw, int(use_cb),
-        _stream(dev),
+        cpt, _stream(dev),
     )
     _raise_on(code, err, "dtw_ea_fused")
     dtw_ea_multi_fused.launches += 1
@@ -332,16 +345,16 @@ def dtw_ea_multi(
         return dtw_ea_plain(queries, candidates, ub_l, window, bw, cb=cb)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    _band_threads(bw)
+    cpt = cols_per_thread(bw)
     out = torch.empty((nq, k), dtype=torch.float32, device=dev)
     if nq * k == 0:
         return out
     launch, err = _lib("dtw_ea_slab", "dtw_ea_slab_launch",
-                       [_P] * 5 + [_I] * 6 + [_P])
+                       [_P] * 5 + [_I] * 7 + [_P])
     code = launch(
         queries.data_ptr(), candidates.data_ptr(),
         None if cb is None else cb.data_ptr(), ub_l.data_ptr(),
-        out.data_ptr(), nq, k, n, m, window, bw, _stream(dev),
+        out.data_ptr(), nq, k, n, m, window, bw, cpt, _stream(dev),
     )
     _raise_on(code, err, "dtw_ea_slab")
     dtw_ea_multi.launches += 1
@@ -379,6 +392,19 @@ def _persistent_outputs(nq: int, dev):
     return (torch.empty(nq, dtype=torch.float32, device=dev),
             torch.empty(nq, dtype=torch.int32, device=dev),
             torch.empty(nq, dtype=torch.int32, device=dev))
+
+
+# Columns of the persistent kernels' per-query int32 state
+# (csrc/dtw_ea_persistent.cu): next lane, done, largest lane run, lanes
+# with a start out of range, lanes that passed the gate.
+_STATE_INTS, _BAD, _RAN = 5, 3, 4
+
+
+def _persistent_state(nq: int, dev):
+    """The incumbent words and the state of one persistent launch; the
+    kernels initialize both."""
+    return (torch.empty(nq, dtype=torch.int64, device=dev),
+            torch.empty((nq, _STATE_INTS), dtype=torch.int32, device=dev))
 
 
 def _check_persistent(queries, lb, starts, ub_init, u, low, use_cb, m, dev):
@@ -462,28 +488,29 @@ def dtw_ea_persistent(
         )
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    _band_threads(bw)
+    cpt = cols_per_thread(bw)
     dist, best, blocks = _persistent_outputs(nq, dev)
     if nq * k == 0:
         return seeds.clone(), best.fill_(-1), blocks.zero_()
-    inc = torch.empty(nq, dtype=torch.int64, device=dev)
-    state = torch.empty((nq, 4), dtype=torch.int32, device=dev)
+    inc, state = _persistent_state(nq, dev)
     launch, err = _lib("dtw_ea_persistent", "dtw_ea_persistent_launch",
-                       [_P] * 12 + [_I] * 8 + [_P])
+                       [_P] * 12 + [_I] * 9 + [_P])
     code = launch(
         queries.data_ptr(), candidates.data_ptr(), lb.data_ptr(),
         starts.data_ptr(), seeds.data_ptr(),
         u.data_ptr() if use_cb else None, low.data_ptr() if use_cb else None,
         dist.data_ptr(), best.data_ptr(), blocks.data_ptr(), inc.data_ptr(),
-        state.data_ptr(), nq, k, n, m, window, bw, int(use_cb), block_k,
+        state.data_ptr(), nq, k, n, m, window, bw, int(use_cb), block_k, cpt,
         _stream(dev),
     )
     _raise_on(code, err, "dtw_ea_persistent")
     dtw_ea_persistent.launches += 1
+    dtw_ea_persistent.lanes_run = state[:, _RAN]
     return dist, best, blocks
 
 
 dtw_ea_persistent.launches = 0
+dtw_ea_persistent.lanes_run = None
 
 
 def dtw_ea_persistent_fused(
@@ -543,15 +570,14 @@ def dtw_ea_persistent_fused(
             u=u, low=low, use_cb=use_cb,
         )
     elif dev.type == "cuda":
-        _band_threads(bw)
+        cpt = cols_per_thread(bw)
         dist, best, blocks = _persistent_outputs(nq, dev)
         if nq * k == 0:
             return seeds.clone(), best.fill_(-1), blocks.zero_()
-        inc = torch.empty(nq, dtype=torch.int64, device=dev)
-        state = torch.empty((nq, 4), dtype=torch.int32, device=dev)
+        inc, state = _persistent_state(nq, dev)
         launch, err = _lib("dtw_ea_persistent",
                            "dtw_ea_persistent_fused_launch",
-                           [_P] * 14 + [_I] * 9 + [_P])
+                           [_P] * 14 + [_I] * 10 + [_P])
         code = launch(
             queries.data_ptr(), ref.data_ptr(), lb.data_ptr(),
             starts.data_ptr(), mu.data_ptr(), sg.data_ptr(), seeds.data_ptr(),
@@ -559,11 +585,12 @@ def dtw_ea_persistent_fused(
             low.data_ptr() if use_cb else None,
             dist.data_ptr(), best.data_ptr(), blocks.data_ptr(),
             inc.data_ptr(), state.data_ptr(), ref.shape[0], nq, k, n, m,
-            window, bw, int(use_cb), block_k, _stream(dev),
+            window, bw, int(use_cb), block_k, cpt, _stream(dev),
         )
         _raise_on(code, err, "dtw_ea_persistent_fused")
         dtw_ea_persistent_fused.launches += 1
-        bad = state[:, 3]
+        dtw_ea_persistent_fused.lanes_run = state[:, _RAN]
+        bad = state[:, _BAD]
     else:
         raise ValueError(f"no kernel for device {dev}")
     n_bad = int(bad.sum())
@@ -576,17 +603,20 @@ def dtw_ea_persistent_fused(
 
 
 dtw_ea_persistent_fused.launches = 0
+dtw_ea_persistent_fused.lanes_run = None
 
 
 def persistent_grid(length: int, band_width: int, use_cb: bool,
                     fused: bool = True) -> int:
-    """Thread blocks kernel C (``fused``) or E keeps resident on the current
-    CUDA card for windows of ``length`` and a resolved ``band_width``: the
-    occupancy query that sizes each launch's grid (a launch takes fewer when
-    it has fewer lanes). Launches nothing."""
+    """Lanes kernel C (``fused``) or E keeps in flight on the current CUDA
+    card for windows of ``length`` and a resolved ``band_width``: one warp
+    a lane, times the thread blocks the occupancy query keeps resident,
+    which sizes each launch's grid (a launch takes fewer when it has fewer
+    lanes). Launches nothing."""
     query, err = _lib("dtw_ea_persistent", "dtw_ea_persistent_grid",
                       [_I] * 4 + [_P])
-    grid = ctypes.c_longlong(0)
-    _raise_on(query(int(fused), int(length), int(band_width), int(use_cb),
-                    ctypes.addressof(grid)), err, "dtw_ea_persistent_grid")
-    return grid.value
+    lanes = ctypes.c_longlong(0)
+    _raise_on(query(int(fused), int(length), int(use_cb),
+                    cols_per_thread(band_width), ctypes.addressof(lanes)),
+              err, "dtw_ea_persistent_grid")
+    return lanes.value

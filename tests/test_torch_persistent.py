@@ -198,8 +198,9 @@ def test_chunked_sweep_equals_repro_sequential_sweep(chunk, use_cb):
 @pytest.mark.parametrize("use_cb", [False, True])
 def test_finished_lane_bits_do_not_depend_on_ub(use_cb):
     """The assumption kernel C rests on: a lane that finishes gives the
-    same bits under ``ub = BIG`` and under ``ub`` equal to its own
-    distance."""
+    same bits under ``ub = BIG``, under ``ub`` equal to its own distance,
+    and under the bounds between them that the incumbent re-read of
+    kernels C and E can hand a lane."""
     c = _case(seed=21)
     win, _ = gather_norm_lanes(_t(c["ref"]), _t(c["starts"]), _t(c["mu_l"]),
                                _t(c["sg_l"]), LENGTH)
@@ -214,6 +215,9 @@ def test_finished_lane_bits_do_not_depend_on_ub(use_cb):
     assert torch.isfinite(free).all()
     tight = dtw_ea_plain(_t(c["qn"]), win, free, WINDOW, bw, cb=cb)
     assert torch.equal(tight, free)
+    for ub in (free * (1 + 1e-6), free * 1.5):
+        assert torch.equal(dtw_ea_plain(_t(c["qn"]), win, ub, WINDOW, bw,
+                                         cb=cb), free)
     below = dtw_ea_plain(_t(c["qn"]), win, torch.nextafter(free, torch.zeros(())),
                          WINDOW, bw, cb=cb)
     assert torch.isinf(below).all()  # one ulp lower and every lane abandons
