@@ -17,10 +17,15 @@ Drives ``repro_torch`` (never JAX, never ``repro``) on ``cuda:0``:
      and a warm seed, against plain sweeps run on the card (C equal to E bit
      for bit, and C run again giving the same ``(best_dist, best_start)``
      bits), and over its first 512 lanes with ``use_cb`` on and off and
-     cold, warm and unbeaten seeds; then repeatability: ``window_stats``
-     and kernels B and A run again on the same inputs must give the same
-     bits (a 1-D ``torch.cumsum``, which ``window_stats`` does not use on
-     the card, is shown beside them);
+     cold, warm and unbeaten seeds; kernel B also at ragged shapes on an
+     N = 100,003 reference (Q of 1, 3, 8 and 13, l of 48, 1000, 1024, the
+     largest whose blocks hold their span of the reference and the largest
+     the kernel takes, quarantined and flat windows, LB_Kim
+     and LB_Keogh each off, a reference scaled by 1e15), where each Q must
+     give the same bits as the same queries at Q = 13 (other query tiles);
+     then repeatability: ``window_stats`` and kernels B and A run again on
+     the same inputs must give the same bits (a 1-D ``torch.cumsum``, which
+     ``window_stats`` does not use on the card, is shown beside them);
   4. the main path end to end: ``multi_query_search`` at the
      ``SearchConfig`` defaults (ECG, N = 1,000,000, l = 1024, w = 102,
      Q = 8, batch = 256, ``eapruned``), once with host rounds and once with
@@ -38,10 +43,11 @@ Drives ``repro_torch`` (never JAX, never ``repro``) on ``cuda:0``:
   5. the same search at N = 50,000, l = 256, w = 25, Q = 4 on the card and
      with ``device="cpu"``, for both drivers and both EA variants;
   6. per-kernel times with CUDA events beside the plain versions' times and
-     the bounds (C and E: the whole cold sweep of phase 3), kernel A's time
-     per DP row, each DTW kernel's share of its bound, the lanes C and E
-     keep in flight and run per query, and the host-rounds wall per round
-     less kernel A's time;
+     the bounds (C and E: the whole cold sweep of phase 3), kernel B's share
+     of its bound, time per term and registers, kernel A's time per DP
+     row, each DTW kernel's share of its bound, the lanes C and E keep in
+     flight and run per query, and the host-rounds wall per round less
+     kernel A's time;
   7. a ``{"kernels": [...]}`` line; the last line is
      ``{"ok": true, "device": {...}}``.
 
@@ -52,6 +58,7 @@ fails on import when ``src/repro_torch`` is not beside it.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -71,6 +78,20 @@ KERNEL_A_ROUNDS = 3
 # sweeps on the card evaluate CE_CHUNK lanes a query at a time.
 CE_SHORT = 512
 CE_CHUNK = 32_768
+# Phase 3 also holds kernel B against its plain version at ragged shapes:
+# a reference of B_SWEEP_N samples (its n_win is no multiple of the kernel's
+# 256-window block at any length below), with a NaN burst (quarantined
+# windows) and a flat stretch longer than any window (sigma 0, clamped);
+# the first Q of B_SWEEP_Q queries (tails that no query tile divides, and
+# more than one tile); the lengths B_SWEEP_L, the largest whose blocks hold
+# the span of the reference in shared memory and the largest the kernel
+# takes (its blocks read the span from global memory); and, at l = 1024, LB_Kim and LB_Keogh each turned off, and the
+# reference scaled by B_SWEEP_SCALE, beyond the range where the kernel
+# divides by a reciprocal computed once a window (it then divides with `/`).
+B_SWEEP_N = 100_003
+B_SWEEP_Q = (1, 3, 8, 13)
+B_SWEEP_L = (48, 1000, 1024)
+B_SWEEP_SCALE = 1e15
 
 # Tolerances, each with its reason.
 # Kernel B: a window's LB_Keogh sums l = 1024 terms; the kernel adds them in
@@ -158,6 +179,27 @@ def phase_card(torch) -> dict:
     return {"kind": name, "count": torch.cuda.device_count(), "smi": smi}
 
 
+def lb_registers() -> dict[str, int] | None:
+    """Kernel B's registers a thread for each query tile (and the one-query
+    tile that reads its span from global memory), from ``ptxas -v``'s log,
+    or ``None`` when this process did not build it."""
+    from repro_torch.kernels import _build
+
+    if "lb_keogh" not in _build.build_log:
+        return None
+    regs, tile = {}, None
+    for ln in _build.build_log["lb_keogh"][1].splitlines():
+        m = re.search(r"Compiling entry function "
+                      r"'.*lb_cascade_kernelILi(\d+)ELb([01])E", ln)
+        if m:
+            tile = m.group(1) + ("" if m.group(2) == "1" else ", span global")
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and tile is not None:
+            regs[tile] = int(m.group(1))
+            tile = None
+    return dict(sorted(regs.items()))
+
+
 def phase_build() -> None:
     from repro_torch.kernels import _build
 
@@ -205,6 +247,76 @@ def phase_kernel_b(torch, prep, pq, plan) -> dict:
         f"max rel err {rel:.3e} (tol {TOL_B})")
     check(rel <= TOL_B, f"kernel B rel err {rel} > {TOL_B}")
     return {"args": args, "valid": prep.valid, "max_abs_err": abs_err}
+
+
+def phase_kernel_b_sweep(torch) -> None:
+    """Kernel B against its plain version on the card at ragged shapes
+    (``B_SWEEP_*``): the ``+inf`` mask exact and ``TOL_B`` on the rest, for
+    the first Q queries at every Q of ``B_SWEEP_Q``; each Q's bounds must
+    also be the same bits as the same queries' bounds at the largest Q,
+    which the kernel computes in other query tiles."""
+    import numpy as np
+
+    from repro_torch.core.common import EPS
+    from repro_torch.core.lower_bounds import envelope
+    from repro_torch.data.synthetic import make_dataset, make_queries
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.lb_keogh import lb_all_windows_plain
+    from repro_torch.search.znorm import (
+        sanitize_series,
+        window_finite_mask,
+        window_stats,
+        znorm,
+    )
+
+    raw = make_dataset(DATASET, B_SWEEP_N, seed=2).astype(np.float32)
+    burst, flat = (5_000, 5_040), (20_000, 20_000 + ops.LB_MAX_LENGTH + 3_000)
+    raw[burst[0]:burst[1]] = np.nan
+    raw[flat[0]:flat[1]] = raw[flat[0]]
+    raw = torch.as_tensor(raw, device=DEVICE)
+    nq_max = max(B_SWEEP_Q)
+    for length in (*B_SWEEP_L, ops.LB_SPAN_MAX_LENGTH, ops.LB_MAX_LENGTH):
+        valid = window_finite_mask(raw, length)
+        qn = znorm(torch.as_tensor(
+            make_queries(DATASET, nq_max, length, seed=3),
+            dtype=torch.float32, device=DEVICE))
+        u, low = (t.contiguous() for t in envelope(qn, max(1, length // 10)))
+        qends = torch.stack([qn[:, 0], qn[:, -1]], 1).contiguous()
+        cases = [(True, True, 1.0)]
+        if length == 1024:
+            cases += [(False, True, 1.0), (True, False, 1.0),
+                      (True, True, B_SWEEP_SCALE)]
+        for use_kim, use_keogh, scale in cases:
+            ref = sanitize_series(raw) * scale
+            mu, sigma = window_stats(ref, length)
+            # The windows inside the flat stretch are constant: their exact
+            # sigma is 0 (float32 prefix sums leave a residue), clamped.
+            sigma[flat[0]:flat[1] - length + 1] = 0.0
+            n_win = mu.shape[0]
+            kw = dict(valid=valid, use_kim=use_kim, use_keogh=use_keogh)
+            p = lb_all_windows_plain(ref, mu, sigma, u, low, qends, length,
+                                     **kw)
+            outs = {nq: ops.lb_keogh_all_windows(
+                ref, mu, sigma, u[:nq], low[:nq], qends[:nq], length, **kw)
+                for nq in B_SWEEP_Q}
+            torch.cuda.synchronize()
+            rel, same = 0.0, True
+            label = (f"l={length} use_kim={use_kim} use_keogh={use_keogh} "
+                     f"reference x {scale:g}")
+            for nq, k in outs.items():
+                fin = torch.isfinite(p[:nq])
+                check(bool((torch.isfinite(k) == fin).all()),
+                      f"kernel B +inf mask ({label}, Q={nq})")
+                rel = max(rel, rel_err(k[fin], p[:nq][fin]))
+                same &= torch.equal(k, outs[nq_max][:nq])
+            say(f"[3 kernel B sweep] {label}: n_win {n_win} ({n_win % 256} in "
+                f"the last block), {int((~valid).sum())} quarantined, "
+                f"{int((sigma < EPS).sum())} flat; Q {list(B_SWEEP_Q)}, tiles "
+                f"{[ops.lb_query_tiles(nq, length) for nq in B_SWEEP_Q]}: "
+                f"max rel err {rel:.3e} (tol {TOL_B}); each Q the same bits "
+                f"as Q={nq_max}: {same}")
+            check(rel <= TOL_B, f"kernel B rel err {rel} > {TOL_B} ({label})")
+            check(same, f"kernel B's bits depend on the query tile ({label})")
 
 
 def round_inputs(torch, plan, state, order, lb_sorted, r):
@@ -774,12 +886,17 @@ def phase_times(torch, kb: dict, ka: dict, kd: dict, kce: dict,
     nq, n_win = upper.shape[0], mu.shape[0]
     b_ms = cuda_ms(lambda: ops.lb_keogh_all_windows(*args, valid=valid), 5)
     b_plain = host_ms(lambda: lb_all_windows_plain(*args, valid=valid))
-    b_ops = FLOPS_PER_LB_TERM * nq * int(valid.sum()) * length
+    terms = nq * int(valid.sum()) * length
+    b_ops = FLOPS_PER_LB_TERM * terms
     b_bytes = 4 * (ref.numel() + 2 * n_win + 2 * nq * length + 2 * nq
                    + nq * n_win) + n_win
     b_bound = max(b_ops / PEAK_FP32, b_bytes / PEAK_BYTES) * 1e3
     say(f"[6 times] kernel B: {b_ms:.3f} ms (plain {b_plain:.1f} ms), bound "
-        f"{b_bound:.3f} ms by operations ({b_ops:.3e} flops)")
+        f"{b_bound:.3f} ms by operations ({b_ops:.3e} flops), "
+        f"{100 * b_bound / b_ms:.2f}% of the bound, "
+        f"{b_ms * 1e6 / terms:.4g} ns a (query, window, offset) term; tiles "
+        f"{ops.lb_query_tiles(nq, length)}; registers a thread by query tile "
+        f"(ptxas) {lb_registers() or 'not built in this run'}")
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     a_ms, a_plain, a_bound = [], [], []
@@ -896,6 +1013,7 @@ def main() -> int:
     pq = prepare_queries(plan, queries)
     order, lb_sorted = cascade(plan, prep, pq.qn)
     kb = timed("phase 3 kernel B", phase_kernel_b, torch, prep, pq, plan)
+    timed("phase 3 kernel B sweep", phase_kernel_b_sweep, torch)
     ka = timed("phase 3 kernel A", phase_kernel_a, torch, prep, pq, plan,
                order, lb_sorted)
     kd = timed("phase 3 kernel D", phase_kernel_d, torch, prep, pq, plan, ka)

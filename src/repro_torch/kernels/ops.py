@@ -54,6 +54,19 @@ from repro_torch.kernels.lb_keogh import lb_all_windows_plain
 # each of its 32 threads' registers.
 MAX_BAND_WIDTH = 1024
 
+# Kernel B's tiling (csrc/lb_keogh.cu): a block holds LB_WINDOWS windows and
+# one tile of q_tile queries, whose envelopes and reference span sit in
+# shared memory. A block may take at most LB_SMEM_BUDGET bytes, so that two
+# blocks are resident on an SM (228 KB of shared memory an SM, 1 KB of it
+# reserved for each block). Long queries take a smaller tile. Where even one
+# query's block does not fit, the tile is one query and the block holds
+# only its envelope, in at most LB_SMEM_MAX bytes (the most one block may
+# opt in to on an H100), and reads the span from global memory.
+LB_WINDOWS = 256
+LB_SMEM_BUDGET = (228 * 1024) // 2 - 1024
+LB_SMEM_MAX = 227 * 1024
+LB_QUERY_TILES = (8, 4, 2, 1)
+
 _COUNTERS = ("with_info counters are not ported yet (ROADMAP.md Queue 1 "
              "item 6, 'Slab arms, counters, baselines')")
 
@@ -126,6 +139,54 @@ def cols_per_thread(bw: int) -> int:
     while 32 * cpt < bw:
         cpt *= 2
     return cpt
+
+
+def lb_smem_bytes(length: int, q_tile: int, span: bool = True) -> int:
+    """Shared memory of one kernel-B block: ``q_tile`` interleaved envelope
+    pairs of ``length`` floats and, with ``span``, the span of
+    ``LB_WINDOWS`` windows. ``launch`` in csrc/lb_keogh.cu sizes the block
+    the same way; the two must agree."""
+    length = int(length)
+    return 4 * (2 * q_tile * length + (LB_WINDOWS + length - 1 if span else 0))
+
+
+# The longest query whose one-query block holds its windows' span (9,557),
+# and the longest kernel B takes at all (29,056: one envelope in
+# LB_SMEM_MAX).
+LB_SPAN_MAX_LENGTH = (LB_SMEM_BUDGET // 4 - LB_WINDOWS + 1) // 3
+LB_MAX_LENGTH = LB_SMEM_MAX // 8
+
+
+def lb_span_in_smem(length: int) -> bool:
+    """Whether kernel B's blocks hold their windows' span of the reference
+    in shared memory at ``length`` (up to ``LB_SPAN_MAX_LENGTH``)."""
+    return lb_smem_bytes(length, 1) <= LB_SMEM_BUDGET
+
+
+def lb_query_tiles(n_queries: int, length: int) -> list[tuple[int, int]]:
+    """Kernel B's launches for ``n_queries`` queries of ``length``: a list of
+    ``(first query, q_tile)``, one launch each, covering every query once.
+
+    The tile is the largest of ``LB_QUERY_TILES`` whose block fits
+    ``LB_SMEM_BUDGET`` (8 at the main path's l = 1024); the tail of a
+    ``n_queries`` that it does not divide takes smaller tiles. Past
+    ``LB_SPAN_MAX_LENGTH`` every tile is one query (``lb_span_in_smem``).
+    Raises past ``LB_MAX_LENGTH``, where one envelope does not fit.
+    """
+    length = int(length)
+    if not 1 <= length <= LB_MAX_LENGTH:
+        raise ValueError(
+            f"length {length} outside [1, {LB_MAX_LENGTH}]: kernel B holds a "
+            f"query's envelope in {LB_SMEM_MAX} bytes of shared memory"
+        )
+    fits = [t for t in LB_QUERY_TILES
+            if lb_smem_bytes(length, t) <= LB_SMEM_BUDGET] or [1]
+    tiles, q0 = [], 0
+    while q0 < n_queries:
+        t = next(t for t in fits if t <= n_queries - q0)
+        tiles.append((q0, t))
+        q0 += t
+    return tiles
 
 
 def dtw_ea_multi_fused(
@@ -244,7 +305,10 @@ def lb_keogh_all_windows(
         non-finite quarantine).
       use_kim, use_keogh: which bounds to take the max of.
 
-    Returns ``(n_win,)`` for one query, ``(Q, n_win)`` for Q.
+    Returns ``(n_win,)`` for one query, ``(Q, n_win)`` for Q. On the card
+    the kernel runs once per query tile (``lb_query_tiles``: once at the
+    main path's Q = 8, l = 1024) and raises for a ``length`` above
+    ``LB_MAX_LENGTH``.
     """
     dev = ref.device
     single = upper.dim() == 1
@@ -269,17 +333,21 @@ def lb_keogh_all_windows(
             use_kim=use_kim, use_keogh=use_keogh, chunk=max(int(chunk), 1),
         )
     elif dev.type == "cuda":
+        tiles = lb_query_tiles(nq, length)
+        span = int(lb_span_in_smem(length))
         out = torch.empty((nq, n_win), dtype=torch.float32, device=dev)
         launch, err = _lib("lb_keogh", "lb_cascade_launch",
-                           [_P] * 8 + [_I] * 5 + [_P])
-        code = launch(
-            ref.data_ptr(), mu.data_ptr(), sigma.data_ptr(), upper.data_ptr(),
-            lower.data_ptr(), qends.data_ptr(),
-            None if valid is None else valid.data_ptr(), out.data_ptr(),
-            nq, n_win, int(length), int(use_kim), int(use_keogh), _stream(dev),
-        )
-        _raise_on(code, err, "lb_cascade")
-        lb_keogh_all_windows.launches += 1
+                           [_P] * 8 + [_I] * 7 + [_P])
+        for q0, q_tile in tiles:
+            code = launch(
+                ref.data_ptr(), mu.data_ptr(), sigma.data_ptr(),
+                upper.data_ptr(), lower.data_ptr(), qends.data_ptr(),
+                None if valid is None else valid.data_ptr(), out.data_ptr(),
+                q0, q_tile, span, n_win, int(length), int(use_kim),
+                int(use_keogh), _stream(dev),
+            )
+            _raise_on(code, err, "lb_cascade")
+            lb_keogh_all_windows.launches += 1
     else:
         raise ValueError(f"no kernel for device {dev}")
     return out[0] if single else out
