@@ -13,6 +13,12 @@ Drives ``repro_torch`` (never JAX, never ``repro``) on ``cuda:0``:
      kernel B over every window; kernel A over the lane sets and ``ub``s of
      the first 3 host rounds, with ``use_cb`` on and off; kernel D on the
      slab of the same lanes (equal to A bit for bit with ``use_cb`` off);
+     the counter variants of A and D (``with_info``) on the same rounds:
+     their distances the counter-free kernel's bits, their per-lane rows
+     and cells the plain version's except on lanes near a threshold (whose
+     counters in the plain version move when ``ub`` moves by ``TOL_A``;
+     those must lie between the plain version's at the moved bounds), and
+     A's equal to D's without cb;
      kernels C and E over each query's whole best-first order, at a cold
      and a warm seed, against plain sweeps run on the card (C equal to E bit
      for bit, and C run again giving the same ``(best_dist, best_start)``
@@ -35,17 +41,30 @@ Drives ``repro_torch`` (never JAX, never ``repro``) on ``cuda:0``:
      bits; the persistent search must launch C once, B once and A never,
      and find the host rounds' ``best_start``; the host rounds run a third
      time with CUDA events around every launch of kernel A, to split their
-     wall into kernel A and the host loop. Then the slab arms at the
+     wall into kernel A and the host loop, and a fourth time with
+     ``with_info=True`` (the counter variant of A), which must give the
+     same ``best_start`` and ``best_dist`` bits, and prints each query's
+     int64 rows and cells. Then the slab arms at the
      same N, each against its fused counterpart: host rounds with
      ``gather="slab"`` (kernel D) and the persistent sweep with
      ``gather="slab"`` (kernel E, over a 33 GB slab; its allocation peak is
      printed);
   5. the same search at N = 50,000, l = 256, w = 25, Q = 4 on the card and
      with ``device="cpu"``, for both drivers and both EA variants;
+     then the paper's four suites (``full``, ``pruned``, ``eapruned``,
+     ``eapruned_nolb``) through ``subsequence_search`` under both drivers,
+     the host rounds with counters, at l = 1024, w = 102 on a reference
+     cut to N = 20,000 (the baselines are row loops of PyTorch ops, about a
+     dozen launches a DP row): each run's winner a nearest window up to
+     float32 rounding (against a float64 brute force over every window),
+     the runs of one DP the same ``best_start``, rows and cells in the
+     order ``eapruned <= pruned <= full``; and ``full`` and
+     ``pruned`` on the card against the CPU at N = 20,000, l = 256, w = 25;
   6. per-kernel times with CUDA events beside the plain versions' times and
      the bounds (C and E: the whole cold sweep of phase 3), kernel B's share
      of its bound, time per term and registers, kernel A's time per DP
-     row, each DTW kernel's share of its bound, the lanes C and E keep in
+     row, the counter variants of A and D (``info_ms``), each DTW kernel's
+     share of its bound, the lanes C and E keep in
      flight and run per query, and the host-rounds wall per round less
      kernel A's time;
   7. a ``{"kernels": [...]}`` line; the last line is
@@ -71,7 +90,20 @@ sys.path.insert(0, str(ROOT / "src"))
 DATASET = "ECG"
 DEVICE = "cuda"
 CROSS = dict(ref_len=50_000, query_len=256, window=25, n_queries=4)
+# The baselines phase: the four suites at the main path's l and w on a
+# reference cut to BASELINE_N samples, and full/pruned on the card against
+# the CPU at BASELINE_CROSS.
+BASELINE_N = 20_000
+BASELINE_CROSS = dict(ref_len=20_000, query_len=256, window=25)
 KERNEL_A_ROUNDS = 3
+# Phase 3 holds the counter variants of kernels A and D against the plain
+# version run on each round's lanes followed by COUNT_COPIES copies of them
+# under ub = BIG (which never abandon): 65 x 2,048 = 133,120 rows, more
+# than 2^17, which PyTorch's CUDA cumsum adds in the kernels' Sklansky
+# order, so the round's lanes get the kernels' bits and the same abandon
+# decisions (a round's 2,048 lanes alone round P otherwise, and the
+# counters of some of them then move by a few cells or a row).
+COUNT_COPIES = 64
 # Phase 3 holds kernels C and E against their plain versions over the first
 # CE_SHORT best-first lanes of each query (use_cb on and off, three seeds)
 # and over each query's whole order (the main path's shapes); the plain
@@ -179,25 +211,40 @@ def phase_card(torch) -> dict:
     return {"kind": name, "count": torch.cuda.device_count(), "smi": smi}
 
 
-def lb_registers() -> dict[str, int] | None:
-    """Kernel B's registers a thread for each query tile (and the one-query
-    tile that reads its span from global memory), from ``ptxas -v``'s log,
-    or ``None`` when this process did not build it."""
+def registers(name: str, kernel: str, key) -> dict[str, int] | None:
+    """Registers a thread of each instantiation ``kernel<A, B>`` (two
+    template arguments, an int and a bool) in library ``name``, from
+    ``ptxas -v``'s log, keyed by ``key(A, B)``; ``None`` when this process
+    did not build it."""
     from repro_torch.kernels import _build
 
-    if "lb_keogh" not in _build.build_log:
+    if name not in _build.build_log:
         return None
-    regs, tile = {}, None
-    for ln in _build.build_log["lb_keogh"][1].splitlines():
-        m = re.search(r"Compiling entry function "
-                      r"'.*lb_cascade_kernelILi(\d+)ELb([01])E", ln)
+    regs, inst = {}, None
+    for ln in _build.build_log[name][1].splitlines():
+        m = re.search(rf"Compiling entry function '.*{kernel}ILi(\d+)ELb([01])E",
+                      ln)
         if m:
-            tile = m.group(1) + ("" if m.group(2) == "1" else ", span global")
+            inst = key(m.group(1), m.group(2) == "1")
         m = re.search(r"Used (\d+) registers", ln)
-        if m and tile is not None:
-            regs[tile] = int(m.group(1))
-            tile = None
+        if m and inst is not None:
+            regs[inst] = int(m.group(1))
+            inst = None
     return dict(sorted(regs.items()))
+
+
+def lb_registers() -> dict[str, int] | None:
+    """Kernel B's registers a thread for each query tile (and the one-query
+    tile that reads its span from global memory)."""
+    return registers("lb_keogh", "lb_cascade_kernel",
+                     lambda qt, span: qt + ("" if span else ", span global"))
+
+
+def round_registers(name: str, kernel: str) -> dict[str, int] | None:
+    """A round kernel's registers a thread for each instantiation, as
+    ``"CPT=<c>"`` (counter-free) or ``"CPT=<c> info"`` (counters)."""
+    return registers(name, kernel,
+                     lambda cpt, info: f"CPT={cpt}" + (" info" if info else ""))
 
 
 def phase_build() -> None:
@@ -211,6 +258,10 @@ def phase_build() -> None:
         keep = [ln.strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln or "error" in ln]
         say(f"  {name}: {s:.2f} s; ptxas: {' | '.join(keep)}")
+    for label, name, kernel in (("A", "dtw_ea_fused", "dtw_ea_fused_kernel"),
+                                ("D", "dtw_ea_slab", "dtw_ea_slab_kernel")):
+        say(f"  kernel {label} registers a thread (ptxas), counter-free and "
+            f"with counters: {round_registers(name, kernel)}")
 
 
 def main_path_inputs(torch, cfg, dev):
@@ -332,11 +383,11 @@ def round_inputs(torch, plan, state, order, lb_sorted, r):
     return starts, ub, lbs
 
 
-def compare_lanes(torch, k, p, ub, label: str) -> float:
+def compare_lanes(torch, k, p, ub, label: str):
     """Hold a round kernel's ``(Q, K)`` distances ``k`` against the plain
     version's ``p``: equal abandon masks except for lanes within ``TOL_A``
     of their ``ub``, and ``TOL_A`` relative where both finish. Returns the
-    largest absolute difference."""
+    largest absolute difference and the mask of those near-ub lanes."""
     fk, fp = torch.isfinite(k), torch.isfinite(p)
     near_ub = torch.zeros_like(fk)
     for d, f in ((k, fk), (p, fp)):
@@ -352,11 +403,35 @@ def compare_lanes(torch, k, p, ub, label: str) -> float:
     check(int(mismatched.sum()) == 0, f"{label}: abandon masks differ away "
           "from ub")
     check(rel <= TOL_A, f"{label}: rel err {rel} > {TOL_A}")
-    return abs_err
+    return abs_err, near_ub
+
+
+def wide(t, pad):
+    """``t`` ``(Q, K, ...)`` followed on its lane axis by ``COUNT_COPIES``
+    copies of ``pad``: the lane set that makes the plain version scan more
+    than 2^17 rows at once."""
+    import torch
+
+    return torch.cat([t] + [pad] * COUNT_COPIES, dim=1).contiguous()
+
+
+def check_counts(torch, got, want, near_ub, label: str) -> None:
+    """Hold a counter variant's per-lane ``(rows, cells)`` ``got`` against
+    the plain version's ``want``: equal on every lane but those of
+    ``near_ub`` (compare_lanes' near-ub exemption); prints how many lanes
+    that exempts and how many of them differ."""
+    same = (got[0] == want[0]) & (got[1] == want[1])
+    total = lambda t: int(t.sum(dtype=torch.int64))
+    say(f"  {label}: {total(got[0])} rows, {total(got[1])} cells (plain "
+        f"{total(want[0])}, {total(want[1])}); {int(near_ub.sum())} lanes "
+        f"near ub exempt, {int((near_ub & ~same).sum())} of them differ; "
+        f"{int((~near_ub & ~same).sum())} differ elsewhere")
+    check(bool((same | near_ub).all()), f"{label}: counters differ from "
+          "the plain version's")
 
 
 def phase_kernel_a(torch, prep, pq, plan, order, lb_sorted) -> dict:
-    from repro_torch.core.common import clamp_sigma
+    from repro_torch.core.common import BIG, clamp_sigma
     from repro_torch.kernels import ops
     from repro_torch.kernels.dtw_band import dtw_ea_fused_plain
     from repro_torch.search.incumbents import initial_state, fold_min
@@ -379,17 +454,32 @@ def phase_kernel_a(torch, prep, pq, plan, order, lb_sorted) -> dict:
             k = ops.dtw_ea_multi_fused(*args, **env)
             p, rows, cells = dtw_ea_fused_plain(*args, bw, count=True, **env)
             torch.cuda.synchronize()
-            worst_abs = max(worst_abs, compare_lanes(
-                torch, k, p, ub, f"[3 kernel A] round {r} use_cb={use_cb}"))
+            label = f"[3 kernel A] round {r} use_cb={use_cb}"
+            err, near_ub = compare_lanes(torch, k, p, ub, label)
+            worst_abs = max(worst_abs, err)
             say(f"    plain counts {int(rows.sum())} rows, "
                 f"{int(cells.sum())} cells")
+            ki = ops.dtw_ea_multi_fused(*args, with_info=True, **env)
+            torch.cuda.synchronize()
+            same = torch.equal(ki[0], k)
+            say(f"  {label} with counters: the counter-free distances bit "
+                f"for bit: {same}")
+            check(same, f"{label}: the counter variant's distances differ")
+            # The counters' reference: the plain version on the round's
+            # lanes and COUNT_COPIES copies of them under ub = BIG.
+            big = torch.full_like(ub, BIG)
+            counts = [t[:, :ub.shape[1]] for t in dtw_ea_fused_plain(
+                args[0], args[1], wide(s32, s32), wide(mu, mu), wide(sg, sg),
+                wide(ub, big), *args[6:], bw, count=True, **env)[1:]]
+            check_counts(torch, ki[1:], counts, near_ub, f"{label} counters")
             if use_cb:
                 rounds.append({"args": args, "env": env, "cells": int(cells.sum()),
                                "rows": int(rows.sum()), "lanes": k.numel(),
-                               "bw": bw, "out": k})
+                               "bw": bw, "out": k, "counts_cb": counts})
                 d_fold = torch.where(torch.isfinite(lbs), k, float("inf"))
             else:
                 rounds[-1]["out_nocb"] = k
+                rounds[-1]["info_nocb"] = ki[1:]
         state, _ = fold_min(state, starts, d_fold)
     return {"rounds": rounds, "max_abs_err": worst_abs}
 
@@ -420,10 +510,29 @@ def phase_kernel_d(torch, prep, pq, plan, ka) -> dict:
         say(f"[3 kernel D] round {i}: use_cb=False equals kernel A bit for "
             f"bit: {same}")
         check(same, f"kernel D differs from kernel A (round {i}, no cb)")
-        worst_abs = max(worst_abs, compare_lanes(
-            torch, d_on, p, ub, f"[3 kernel D] round {i} host cb slab"))
+        err, near_ub = compare_lanes(torch, d_on, p, ub,
+                                     f"[3 kernel D] round {i} host cb slab")
+        worst_abs = max(worst_abs, err)
         compare_lanes(torch, d_on, r["out"], ub,
                       f"[3 kernel D] round {i} host cb slab against kernel A")
+        # The counter variant: D's bits, A's counters without cb, and with
+        # the host cb slab the counters of kernel A's plain reference (the
+        # same windows and cb slab).
+        info_off = ops.dtw_ea_multi(qn, slab, ub, window, with_info=True)
+        info_on = ops.dtw_ea_multi(qn, slab, ub, window, cb=cbs,
+                                   with_info=True)
+        torch.cuda.synchronize()
+        same = (torch.equal(info_off[0], d_off)
+                and torch.equal(info_on[0], d_on))
+        same_a = all(torch.equal(x, y)
+                     for x, y in zip(info_off[1:], r["info_nocb"]))
+        say(f"  [3 kernel D] round {i} with counters: the counter-free "
+            f"distances bit for bit: {same}; use_cb=False counters equal to "
+            f"kernel A's: {same_a}")
+        check(same, f"kernel D's counter variant changes distances (round {i})")
+        check(same_a, f"kernels A and D count differently (round {i}, no cb)")
+        check_counts(torch, info_on[1:], r["counts_cb"], near_ub,
+                     f"[3 kernel D] round {i} host cb slab counters")
         rounds.append({"args": (qn, slab, ub, window), "cb": cbs,
                        "cells": int(cells.sum()), "lanes": d_on.numel(),
                        "bw": r["bw"]})
@@ -784,6 +893,30 @@ def host_loop_split(torch, cfg, ref, queries) -> dict:
             "loop_ms_per_round": loop_ms / launches}
 
 
+def phase_info_search(torch, cfg, ref, queries, host: dict) -> dict:
+    """The host rounds once more with ``with_info=True``: every round runs
+    kernel A's counter variant. The winners must be the counter-free
+    search's bits; each query's int64 rows and cells are printed."""
+    res, wall, launches = counted_search(torch, ref, queries, cfg,
+                                         with_info=True)
+    h = host["res"]
+    same = (torch.equal(res.best_start, h.best_start)
+            and torch.equal(res.best_dist, h.best_dist))
+    say(f"[4 counters] host rounds with_info=True N={cfg.ref_len}: "
+        f"{wall:.3f} s wall (counter-free {host['wall_s']:.3f} s); launches "
+        f"{launches}; best_start and best_dist the counter-free bits: {same}")
+    say(f"  rows per query (int64) {res.rows.tolist()}")
+    say(f"  cells per query (int64) {res.cells.tolist()}")
+    check(launches["dtw_ea_multi_fused"] > 0
+          and launches["lb_keogh_all_windows"] == 1,
+          "the counting host rounds must run kernels A and B")
+    check(same, "the counters changed the search's winners")
+    check(res.rows.dtype == torch.int64 and bool((res.rows > 0).all())
+          and bool((res.cells > res.rows).all()), "counters missing")
+    return {"wall_s": wall, "rows": res.rows.tolist(),
+            "cells": res.cells.tolist()}
+
+
 def phase_slab_arms(torch, cfg, ref, queries, host: dict, sweep: dict) -> dict:
     """The slab arms end to end at the full N: host rounds with
     ``gather="slab"`` (kernel D, an (8, 256, 1024) slab a round) against
@@ -863,6 +996,138 @@ def phase_cross_check(torch) -> None:
             check(rel <= TOL_CROSS, f"{label}: distances differ")
 
 
+def exact_distances(torch, ref, query, window: int, chunk: int = 4096):
+    """The DTW distance of ``query`` to every z-normalized window of ``ref``
+    in float64 on the card: windows and query normalized in float64,
+    ``core.dtw.dtw_batch`` on ``chunk`` windows at a time."""
+    from repro_torch.core.common import EPS
+    from repro_torch.core.dtw import dtw_batch
+
+    length = len(query)
+    wins = torch.as_tensor(ref, dtype=torch.float64, device=DEVICE)
+    wins = wins.unfold(0, length, 1)
+    q = torch.as_tensor(query, dtype=torch.float64, device=DEVICE)
+    q = (q - q.mean()) / q.std(correction=0).clamp_min(EPS)
+    out = []
+    for lo in range(0, wins.shape[0], chunk):
+        w = wins[lo:lo + chunk]
+        w = (w - w.mean(1, keepdim=True)) / w.std(
+            1, keepdim=True, correction=0).clamp_min(EPS)
+        out.append(dtw_batch(q.expand(w.shape[0], -1), w, window=window))
+    return torch.cat(out).cpu()
+
+
+def phase_baselines(torch, cfg) -> None:
+    """The paper's four suites through ``subsequence_search`` under both
+    drivers, the host rounds with counters, at the main path's l and w on a
+    reference cut to ``BASELINE_N``, with rows and cells in the order
+    ``eapruned <= pruned <= full``; the baselines launch no DTW kernel.
+    The DP differs between the suites: the EA suites run the kernels'
+    banded row, ``full`` and ``pruned`` ``repro``'s full-row closed form,
+    whose float32 prefix sum over 1024 columns carries ~3e-4 of a distance
+    (two windows closer than that can change places). So the runs of each
+    DP must agree on ``best_start``, and every run's winner must be a
+    nearest window up to ``TOL_A``: its DTW in float64 within ``TOL_A`` of
+    the float64 brute-force minimum, and its ``best_dist`` within ``TOL_A``
+    of it. Then ``full`` and ``pruned`` on the card against the CPU at
+    ``BASELINE_CROSS``."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import make_dataset, make_queries
+    from repro_torch.kernels import ops
+    from repro_torch.search import subsequence_search
+    from repro_torch.search.pipeline import VARIANTS
+
+    ref = make_dataset(DATASET, BASELINE_N, seed=0).astype(np.float32)
+    query = make_queries(DATASET, 1, cfg.query_len, seed=1)[0]
+    query = query.astype(np.float32)
+    say(f"[5 baselines] the four suites, l={cfg.query_len} w={cfg.window} "
+        f"batch={cfg.batch}, on a reference cut to N={BASELINE_N} from the "
+        f"main path's {cfg.ref_len} (the baselines run a DP row as about a "
+        f"dozen PyTorch launches)")
+    out = {}
+    for rounds in ("host", "persistent"):
+        for variant in VARIANTS:
+            for name in KERNELS:
+                getattr(ops, name).launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = subsequence_search(
+                ref, query, cfg.query_len, cfg.window, variant=variant,
+                batch=cfg.batch, block_k=cfg.block_k, rounds=rounds,
+                with_info=rounds == "host", device=DEVICE,
+            )
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {n: getattr(ops, n).launches for n in KERNELS
+                        if getattr(ops, n).launches}
+            say(f"  {rounds} {variant}: {wall:.3f} s; best_start "
+                f"{int(res.best_start)} best_dist {float(res.best_dist)!r} "
+                f"rounds {int(res.rounds)} lanes {int(res.lanes)} rows "
+                f"{int(res.rows)} cells {int(res.cells)}; launches {launches}")
+            if variant in ("full", "pruned"):
+                check(set(launches) <= {"lb_keogh_all_windows"},
+                      f"{rounds} {variant} launched a DTW kernel")
+            out[rounds, variant] = res
+    # The nearest neighbour by brute force in float64: every window's DTW
+    # (core.dtw on float64 windows normalized in float64).
+    exact = exact_distances(torch, ref, query, cfg.window)
+    nn = int(exact.argmin())
+    ea = {int(out[k].best_start) for k in out if k[1].startswith("eapruned")}
+    base = {int(out[k].best_start) for k in out if k[1] in ("full", "pruned")}
+    say(f"  brute force in float64: nearest window {nn} at {float(exact[nn])!r};"
+        f" best_start of the EA suites {ea}, of full and pruned {base}")
+    check(len(ea) == 1 and len(base) == 1,
+          "the runs of one DP (the kernels', or full/pruned's) disagree")
+    for (rounds, variant), res in out.items():
+        s = int(res.best_start)
+        gap = float(exact[s] / exact[nn] - 1)
+        rel = abs(float(res.best_dist) / float(exact[s]) - 1)
+        say(f"  {rounds} {variant}: window {s} at {float(exact[s])!r} in "
+            f"float64, {gap:.3e} above the nearest; best_dist {rel:.3e} off "
+            f"its float64 distance (tol {TOL_A} each)")
+        check(gap <= TOL_A and rel <= TOL_A,
+              f"{rounds} {variant}: not a nearest window up to float32 "
+              "rounding")
+    for f in ("rows", "cells"):
+        v = [int(getattr(out["host", k], f))
+             for k in ("eapruned", "pruned", "full")]
+        check(0 < v[0] <= v[1] <= v[2], f"{f} not in the order "
+              f"eapruned <= pruned <= full: {v}")
+
+    c = BASELINE_CROSS
+    ref = make_dataset(DATASET, c["ref_len"], seed=0).astype(np.float32)
+    query = make_queries(DATASET, 1, c["query_len"], seed=1)[0]
+    query = query.astype(np.float32)
+    for variant in ("full", "pruned"):
+        for rounds in ("host", "persistent"):
+            res = {}
+            for dev in (DEVICE, "cpu"):
+                t0 = time.perf_counter()
+                res[dev] = subsequence_search(
+                    ref, query, c["query_len"], c["window"], variant=variant,
+                    batch=cfg.batch, rounds=rounds,
+                    with_info=rounds == "host", device=dev,
+                )
+                torch.cuda.synchronize()
+                res[dev] = {k: float(v) for k, v in res[dev]._asdict().items()}
+                res[dev]["s"] = time.perf_counter() - t0
+            g, h = res[DEVICE], res["cpu"]
+            rel = abs(g["best_dist"] - h["best_dist"]) / max(h["best_dist"], 1)
+            say(f"[5 baselines cross-check] {variant} {rounds} "
+                f"N={c['ref_len']} l={c['query_len']}: card {g['s']:.2f} s, "
+                f"cpu {h['s']:.2f} s; best_start {g['best_start']:.0f} "
+                f"(cpu {h['best_start']:.0f}), best_dist rel err {rel:.3e} "
+                f"(tol {TOL_CROSS}); rounds {g['rounds']:.0f} "
+                f"({h['rounds']:.0f}), rows {g['rows']:.0f} ({h['rows']:.0f}),"
+                f" cells {g['cells']:.0f} ({h['cells']:.0f}), shown")
+            check(g["best_start"] == h["best_start"],
+                  f"{variant} {rounds}: best_start differs card and CPU")
+            check(g["quarantined"] == h["quarantined"],
+                  f"{variant} {rounds}: quarantine counts differ")
+            check(rel <= TOL_CROSS, f"{variant} {rounds}: distances differ")
+
+
 def bound_by(cells: int, bound: float) -> str:
     """Which of the two times sets a DTW kernel's bound."""
     return ("operations" if FLOPS_PER_CELL * cells / PEAK_FP32 * 1e3 >= bound
@@ -899,28 +1164,34 @@ def phase_times(torch, kb: dict, ka: dict, kd: dict, kce: dict,
         f"(ptxas) {lb_registers() or 'not built in this run'}")
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    a_ms, a_plain, a_bound = [], [], []
+    a_ms, a_info, a_plain, a_bound = [], [], [], []
     for i, r in enumerate(ka["rounds"]):
         a_ms.append(cuda_ms(lambda: ops.dtw_ea_multi_fused(*r["args"], **r["env"]), 5))
+        a_info.append(cuda_ms(lambda: ops.dtw_ea_multi_fused(
+            *r["args"], with_info=True, **r["env"]), 5))
         a_plain.append(host_ms(lambda: dtw_ea_fused_plain(*r["args"], r["bw"], **r["env"])))
         m = r["args"][-1]
         nbytes = 4 * (r["lanes"] * (m + 5) + 3 * r["args"][0].numel())
         a_bound.append(dtw_bound_ms(r["cells"], nbytes))
-        say(f"  kernel A round {i}: {a_ms[-1]:.3f} ms (plain {a_plain[-1]:.1f} ms), "
+        say(f"  kernel A round {i}: {a_ms[-1]:.3f} ms, with counters "
+            f"{a_info[-1]:.3f} ms (plain {a_plain[-1]:.1f} ms), "
             f"bound {a_bound[-1]:.4f} ms ({r['cells']} cells); {r['rows']} DP "
             f"rows, {a_ms[-1] * 1e6 * sms / r['rows']:.1f} ns of one SM a row")
 
     # Kernel D: the three rounds' slabs with the host cb slab; each lane
     # reads its window and cb rows (2m floats) and its ub, writes one float.
-    d_ms, d_plain, d_bound = [], [], []
+    d_ms, d_info, d_plain, d_bound = [], [], [], []
     for i, r in enumerate(kd["rounds"]):
         args, cb = r["args"], r["cb"]
         d_ms.append(cuda_ms(lambda: ops.dtw_ea_multi(*args, cb=cb), 5))
+        d_info.append(cuda_ms(lambda: ops.dtw_ea_multi(*args, cb=cb,
+                                                       with_info=True), 5))
         d_plain.append(host_ms(lambda: dtw_ea_plain(*args, r["bw"], cb=cb)))
         m = args[1].shape[-1]
         nbytes = 4 * (r["lanes"] * (2 * m + 2) + args[0].numel())
         d_bound.append(dtw_bound_ms(r["cells"], nbytes))
-        say(f"  kernel D round {i}: {d_ms[-1]:.3f} ms (plain {d_plain[-1]:.1f} ms), "
+        say(f"  kernel D round {i}: {d_ms[-1]:.3f} ms, with counters "
+            f"{d_info[-1]:.3f} ms (plain {d_plain[-1]:.1f} ms), "
             f"bound {d_bound[-1]:.4f} ms ({r['cells']} cells)")
 
     # Kernels C and E: the cold sweep of each query's whole order (phase 3).
@@ -938,6 +1209,10 @@ def phase_times(torch, kb: dict, ka: dict, kd: dict, kce: dict,
     say(f"  kernel E (whole order): {e_ms:.3f} ms (plain {e_plain:.1f} ms), "
         f"bound {e_bound:.4f} ms")
     mean = lambda xs: sum(xs) / len(xs)
+    say(f"  counter variants: A {mean(a_info):.4f} ms against "
+        f"{mean(a_ms):.4f} ms ({100 * (mean(a_info) / mean(a_ms) - 1):+.2f}%)"
+        f", D {mean(d_info):.4f} ms against {mean(d_ms):.4f} ms "
+        f"({100 * (mean(d_info) / mean(d_ms) - 1):+.2f}%)")
     shares = {"A": mean(a_bound) / mean(a_ms), "D": mean(d_bound) / mean(d_ms),
               "C": c_bound / c_ms, "E": e_bound / e_ms}
     say("  share of the bound (bound ms / ms): " + ", ".join(
@@ -954,30 +1229,33 @@ def phase_times(torch, kb: dict, ka: dict, kd: dict, kce: dict,
          "replaces": "src/repro/kernels/dtw_band.py:411",
          "max_abs_err": ka["max_abs_err"], "ms": mean(a_ms),
          "plain_ms": mean(a_plain), "bound_ms": mean(a_bound),
-         "bound_by": "operations", "library_ms": None},
+         "bound_by": "operations", "library_ms": None,
+         "info_ms": mean(a_info)},
         {"name": "lb_keogh_all_windows", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lb_keogh.cu",
          "replaces": "src/repro/kernels/lb_keogh.py:19",
          "max_abs_err": kb["max_abs_err"], "ms": b_ms, "plain_ms": b_plain,
-         "bound_ms": b_bound, "bound_by": "operations", "library_ms": None},
+         "bound_ms": b_bound, "bound_by": "operations", "library_ms": None,
+         "info_ms": None},
         {"name": "dtw_ea_persistent_fused", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/dtw_ea_persistent.cu",
          "replaces": "src/repro/kernels/dtw_band.py:479",
          "max_abs_err": kce["max_abs_err"], "ms": c_ms, "plain_ms": c_plain,
          "bound_ms": c_bound, "bound_by": bound_by(kce["cells"], c_bound),
-         "library_ms": None},
+         "library_ms": None, "info_ms": None},
         {"name": "dtw_ea_multi", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/dtw_ea_slab.cu",
          "replaces": "src/repro/kernels/dtw_band.py:370",
          "max_abs_err": kd["max_abs_err"], "ms": mean(d_ms),
          "plain_ms": mean(d_plain), "bound_ms": mean(d_bound),
-         "bound_by": "operations", "library_ms": None},
+         "bound_by": "operations", "library_ms": None,
+         "info_ms": mean(d_info)},
         {"name": "dtw_ea_persistent", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/dtw_ea_persistent.cu",
          "replaces": "src/repro/kernels/dtw_band.py:479",
          "max_abs_err": kce["max_abs_err"], "ms": e_ms, "plain_ms": e_plain,
          "bound_ms": e_bound, "bound_by": bound_by(kce["cells"], e_bound),
-         "library_ms": None},
+         "library_ms": None, "info_ms": None},
     ]
 
 
@@ -1025,11 +1303,14 @@ def main() -> int:
                  queries, "host")
     loop = timed("phase 4 host loop", host_loop_split, torch, cfg, ref,
                  queries)
+    timed("phase 4 counters", phase_info_search, torch, cfg, ref, queries,
+          host)
     sweep = timed("phase 4 persistent", phase_end_to_end, torch, cfg, ref,
                   queries, "persistent", host)
     slab = timed("phase 4 slab arms", phase_slab_arms, torch, cfg, ref,
                  queries, host, sweep)
     timed("phase 5", phase_cross_check, torch)
+    timed("phase 5 baselines", phase_baselines, torch, cfg)
     kernels = timed("phase 6", phase_times, torch, kb, ka, kd, kce, loop)
     # Launches on the path that runs each kernel: host rounds (A, B), the
     # persistent sweep (C), the slab arms (D, E).

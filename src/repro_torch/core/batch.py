@@ -14,7 +14,12 @@ DESIGN.md §2.10) and slab (a pre-gathered ``(Q, K, m)`` window slab, the
   * ``ea_pruned_dtw_batch`` / ``ea_pruned_dtw_multi_batch`` — round, slab
     (kernel D);
   * ``ea_pruned_dtw_persistent_fused`` — sweep, fused (kernel C);
-  * ``ea_pruned_dtw_persistent`` — sweep, slab (kernel E).
+  * ``ea_pruned_dtw_persistent`` — sweep, slab (kernel E);
+  * ``block_sweep`` — the baselines' persistent sweep, one query over a
+    window slab with a scalar incumbent, any per-block distance function.
+
+The three rounds take ``with_info=True`` and then also return the per-lane
+``EAInfo`` counters (the counter variants of kernels A and D on CUDA).
 
 Dispatch is by the device of the tensors: each ``kernels.ops`` wrapper
 launches its CUDA kernel for CUDA tensors and runs its plain version for
@@ -28,10 +33,18 @@ import torch
 
 from repro_torch.core import guards
 from repro_torch.core.common import clamp_sigma
+from repro_torch.core.ea_pruned_dtw import EAInfo
 from repro_torch.kernels import ops
+from repro_torch.kernels.dtw_band import SWEEP_CHUNK, _sweep
 
-_COUNTERS = ("with_info stats rounds are not ported yet (ROADMAP.md Queue 1 "
-             "item 6, 'Slab arms, counters, baselines')")
+
+def _with_info(out, with_info: bool):
+    """A round wrapper's output as ``repro``'s batch primitives return it:
+    the distances, or ``(distances, EAInfo)``."""
+    if not with_info:
+        return out
+    d, rows, cells = out
+    return d, EAInfo(rows=rows, cells=cells)
 
 
 def ea_pruned_dtw_multi_batch_fused(
@@ -49,7 +62,7 @@ def ea_pruned_dtw_multi_batch_fused(
     row_block: int = 128,
     with_info: bool = False,
     ref_budget: int | None = None,
-) -> torch.Tensor:
+):
     """Fused-gather multi-query round: ``(Q, K)`` distances (``+inf`` where
     a lane abandoned).
 
@@ -69,12 +82,12 @@ def ea_pruned_dtw_multi_batch_fused(
       band_width: columns per row (``None`` = ``default_band_width``).
       rows_per_step, block_k, row_block, ref_budget: ``repro``'s tuning
         knobs; accepted, no effect on results.
-      with_info: the ``EAInfo`` stats rounds are not ported yet (ROADMAP.md
-        Queue 1 item 6); ``True`` raises ``NotImplementedError``.
+      with_info: also return the per-lane ``EAInfo`` counters.
+
+    Returns ``(Q, K)`` distances; with ``with_info`` a ``(distances,
+    EAInfo)`` pair of ``(Q, K)`` tensors.
     """
     del rows_per_step
-    if with_info:
-        raise NotImplementedError(_COUNTERS)
     if queries.dim() != 2:
         raise guards.SearchInputError(
             "fused multi batch requires (Q, m) univariate queries"
@@ -89,12 +102,13 @@ def ea_pruned_dtw_multi_batch_fused(
     u = low = None
     if envelopes is not None:
         u, low = (e.to(torch.float32).contiguous() for e in envelopes)
-    return ops.dtw_ea_multi_fused(
+    return _with_info(ops.dtw_ea_multi_fused(
         queries.to(torch.float32).contiguous(), ref.to(torch.float32).contiguous(),
         starts.to(torch.int32).contiguous(), mu_l, sg_l, ub_l, window, length,
         u=u, low=low, use_cb=envelopes is not None, band_width=band_width,
         block_k=block_k, row_block=row_block, ref_budget=ref_budget,
-    )
+        with_info=with_info,
+    ), with_info)
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -125,8 +139,8 @@ def check_batch_args(query, candidates, window, cb=None, multi=False):
             )
     elif qnd != 1:
         raise NotImplementedError(
-            "multivariate queries are not ported yet (ROADMAP.md Queue 1 "
-            "item 6, 'Slab arms, counters, baselines')"
+            "multivariate queries have no batch path in the port: repro's "
+            "search cannot use one (ROADMAP.md Queue 1 item 6, Queue 3)"
         )
     elif cnd != 2:
         raise guards.SearchInputError(
@@ -155,13 +169,13 @@ def ea_pruned_dtw_batch(
     block_k: int = 8,
     row_block: int = 128,
     with_info: bool = False,
-) -> torch.Tensor:
+):
     """Banded EAPrunedDTW of one query against K windows: ``(K,)``
     distances, ``+inf`` where a lane abandoned.
 
     Args:
-      query: ``(m,)`` z-normalized query (multivariate queries are not
-        ported yet, ROADMAP.md Queue 1 item 6).
+      query: ``(m,)`` z-normalized query (a multivariate one raises
+        ``NotImplementedError``, ROADMAP.md Queue 1 item 6).
       candidates: ``(K, m)`` normalized windows.
       ub: scalar upper bound shared by every lane, or ``(K,)`` per lane.
       window: Sakoe-Chiba window.
@@ -170,18 +184,16 @@ def ea_pruned_dtw_batch(
         tightening).
       rows_per_step, block_k, row_block: ``repro``'s tuning knobs; no
         effect on results.
-      with_info: not ported yet (ROADMAP.md Queue 1 item 6); ``True``
-        raises ``NotImplementedError``.
+      with_info: also return the per-lane ``EAInfo`` counters, as a
+        ``(distances, EAInfo)`` pair.
     """
     del rows_per_step
-    if with_info:
-        raise NotImplementedError(_COUNTERS)
     check_batch_args(query, candidates, window, cb=cb)
-    return ops.dtw_ea(
+    return _with_info(ops.dtw_ea(
         _f32(query), _f32(candidates), ub, window,
         cb=None if cb is None else _f32(cb), band_width=band_width,
-        block_k=block_k, row_block=row_block,
-    )
+        block_k=block_k, row_block=row_block, with_info=with_info,
+    ), with_info)
 
 
 def ea_pruned_dtw_multi_batch(
@@ -195,7 +207,7 @@ def ea_pruned_dtw_multi_batch(
     block_k: int = 8,
     row_block: int = 128,
     with_info: bool = False,
-) -> torch.Tensor:
+):
     """Banded EAPrunedDTW of Q queries against their own ``(Q, K, m)``
     windows in one dispatch: ``(Q, K)`` distances, ``+inf`` where a lane
     abandoned.
@@ -205,14 +217,12 @@ def ea_pruned_dtw_multi_batch(
     ``(Q, K, m)``; the other arguments as ``ea_pruned_dtw_batch``.
     """
     del rows_per_step
-    if with_info:
-        raise NotImplementedError(_COUNTERS)
     check_batch_args(queries, candidates, window, cb=cb, multi=True)
-    return ops.dtw_ea_multi(
+    return _with_info(ops.dtw_ea_multi(
         _f32(queries), _f32(candidates), ub, window,
         cb=None if cb is None else _f32(cb), band_width=band_width,
-        block_k=block_k, row_block=row_block,
-    )
+        block_k=block_k, row_block=row_block, with_info=with_info,
+    ), with_info)
 
 
 def ea_pruned_dtw_persistent(
@@ -309,3 +319,48 @@ def ea_pruned_dtw_persistent_fused(
         band_width=band_width, block_k=block_k, row_block=row_block,
         ref_budget=ref_budget,
     )
+
+
+def block_sweep(cand, lb, starts, ub0, block_k, block_fn,
+                chunk: int = SWEEP_CHUNK):
+    """Best-first sweep of one query over ``block_k``-lane blocks with a
+    carried scalar incumbent (``repro``'s ``core/batch.py::block_sweep``,
+    the persistent driver of the ``full``/``pruned`` baselines).
+
+    A block runs iff its head ``lb`` lies below the incumbent; every lane of
+    a running block with a finite ``lb`` runs (no lane gate, as in
+    ``repro``); the fold is strict improvement with the first lane on ties;
+    the sweep ends at the first gated block. The lanes are evaluated
+    ``chunk`` at a time at the incumbent the sweep held when the chunk
+    began, and the gate and fold are replayed block by block
+    (``kernels/dtw_band.py::_sweep``): that gives ``repro``'s sequential
+    result wherever a lane that finishes has the same distance under any
+    ``ub`` it finishes under and a lane that abandons would abandon under
+    any smaller one, which holds for ``dtw`` (it takes no ``ub``) and
+    ``pruned_dtw`` (``tests/test_torch_baselines.py``).
+
+    Args:
+      cand: ``(K_pad, m[, dims])`` windows in ascending-``lb`` order.
+      lb: ``(K_pad,)`` sorted lower bounds (``+inf``: padding and
+        quarantined lanes, whose distances are masked).
+      starts: ``(K_pad,)`` global start per lane.
+      ub0: scalar initial incumbent.
+      block_k: lanes per block.
+      block_fn: ``(cand_chunk, lb_chunk, ub_lanes) -> (k,)`` distances of a
+        chunk of lanes, ``ub_lanes`` the ``(k,)`` bound each lane runs
+        under (the query's incumbent, or ``DEAD_LANE_UB`` once the sweep has
+        ended).
+      chunk: lanes evaluated together; no effect on the result.
+
+    Returns ``(ub, best, blocks)``: 0-d float32, int32 (-1 while the seed is
+    unbeaten) and int32 tensors.
+    """
+    ub_init = torch.as_tensor(ub0, dtype=torch.float32,
+                              device=lb.device).reshape(1)
+
+    def evaluate(lo, hi, ub_lanes):
+        return block_fn(cand[lo:hi], lb[lo:hi], ub_lanes[0])[None]
+
+    ub, best, blocks = _sweep(lb[None], starts[None], ub_init, block_k,
+                              evaluate, chunk, lane_gate=False)
+    return ub[0], best[0], blocks[0]

@@ -59,6 +59,13 @@
 // finishes under unless a pruned cell ties the optimum within rounding
 // (kernels C and E rest on this; tests/test_torch_persistent.py and
 // tests/test_torch_warp_row.py check it).
+//
+// Counters (kInfo, kernels A and D): repro's EAInfo, per lane. A lane counts
+// every row it enters, the row on which it abandons included, and the cells
+// of each such row that exist: columns max(ns, i - w, 0) .. min(m - 1,
+// i + w), ns taken before the row, which every thread computes alike from
+// the warp-uniform ns with no shuffle. A dead lane counts row 0 alone
+// (dead_lane_counts). The counter-free instantiation compiles as before.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -203,6 +210,25 @@ __device__ __forceinline__ void band_prefix_sum(float (&p)[CPT], int t) {
   }
 }
 
+// A lane's EAInfo counters: rows entered and cells that exist in them.
+struct Counts {
+  int rows;
+  int cells;
+};
+
+// The counters of a lane that dies on row 0 (a negative ub, or a window
+// start out of range): that row and its cells, columns 0 .. min(m - 1, w).
+__device__ __forceinline__ Counts dead_lane_counts(int m, int window) {
+  return Counts{1, min(m - 1, window) + 1};
+}
+
+// Lane `lane`'s counters into the (lanes,) int32 outputs.
+__device__ __forceinline__ void write_counts(int* rows, int* cells,
+                                             long long lane, Counts c) {
+  rows[lane] = c.rows;
+  cells[lane] = c.cells;
+}
+
 // Per-lane state carried from one row to the next, in registers.
 template <int CPT>
 struct Lane {
@@ -302,12 +328,13 @@ __device__ __forceinline__ bool dp_row(int i, bool shift, float q_i,
 // `cb` the warp's cb slice (nullptr when cb is off). With kShared, `inc`
 // is the query's incumbent word ((distance bits) << 32 | rank) and the lane
 // runs against the smaller of `ub` and the distance it last read there,
-// re-read every kRereadRows rows. Every thread of the warp must call it and
-// gets the same value.
-template <int CPT, bool kShared, class Win>
+// re-read every kRereadRows rows. With kInfo, `cnt` receives the lane's
+// counters. Every thread of the warp must call it and gets the same value.
+template <int CPT, bool kShared, bool kInfo = false, class Win>
 __device__ __forceinline__ float dtw_lane(
     const float* __restrict__ qrow, const Win win, const float* cb, float ub,
-    const unsigned long long* inc, int n, int m, int window, int bw) {
+    const unsigned long long* inc, int n, int m, int window, int bw,
+    Counts* cnt = nullptr) {
   const int t = threadIdx.x & 31;
   Lane<CPT> st;
 #pragma unroll
@@ -327,6 +354,7 @@ __device__ __forceinline__ float dtw_lane(
   int edges = 0;
   // kShared: the incumbent distance read one period ago (lane 0).
   unsigned seen = __float_as_uint(ub);
+  Counts c{0, 0};  // kInfo
 
   for (int i = 0; i < n; ++i) {
     if (kShared && (i & (kRereadRows - 1)) == 0) {
@@ -355,10 +383,17 @@ __device__ __forceinline__ float dtw_lane(
     if (cb != nullptr && i + window + 1 <= m - 1) {
       thr = __fsub_rn(ub, cb[i + window + 1]);
     }
+    if constexpr (kInfo) {  // the row is entered: count it and its cells
+      ++c.rows;
+      c.cells += max(0, min(m - 1, i + window) -
+                            max(max(st.ns, i - window), 0) + 1);
+    }
     if (!dp_row<CPT>(i, shift, q_i, edge, thr, n, m, window, bw, t, st)) {
+      if constexpr (kInfo) *cnt = c;
       return INFINITY;
     }
   }
+  if constexpr (kInfo) *cnt = c;
   if (!st.ok_last) return INFINITY;
   const int lo_fin = min(max(n - 1 - window, 0), m - bw);
   const int slot = (m - 1) - lo_fin;  // in the band: ok_last saw column m - 1

@@ -10,7 +10,10 @@
 // ub. Output: the distance, or +inf where the lane abandoned. A lane whose
 // start lies outside [0, N - m] reads nothing and writes NaN: the range is
 // checked here, per lane, so that the wrapper needs no host sync to check
-// it. A negative ub is the dead-lane sentinel: +inf, no row run.
+// it. A negative ub is the dead-lane sentinel: +inf, no row run. With
+// counters (rows != nullptr, the TPU kernel's emit_info), lane 0 of each
+// warp also writes the lane's EAInfo rows and cells (dtw_band.cuh); a dead
+// or out-of-range lane counts row 0, as the plain version does.
 //
 // Design: one warp per lane, kWarps lanes a thread block, the rows of the
 // shared DP program (dtw_band.cuh: the band in registers, CPT columns a
@@ -48,7 +51,7 @@ using namespace dtw_band;
 
 constexpr int kWarps = 4;  // lanes a thread block, at most
 
-template <int CPT>
+template <int CPT, bool kInfo>
 __global__ void __launch_bounds__(kWarps * 32) dtw_ea_fused_kernel(
     const float* __restrict__ queries,  // (Q, n) z-normalized queries
     const float* __restrict__ ref,      // (N,) sanitized reference
@@ -59,6 +62,8 @@ __global__ void __launch_bounds__(kWarps * 32) dtw_ea_fused_kernel(
     const float* __restrict__ upper,    // (Q, m) envelope (read iff use_cb)
     const float* __restrict__ lower,    // (Q, m)
     float* __restrict__ out,            // (Q * K,)
+    int* __restrict__ rows,             // (Q * K,) iff kInfo
+    int* __restrict__ cells,            // (Q * K,) iff kInfo
     long long lanes, int n_ref, int K, int n, int m, int window, int bw,
     int use_cb) {
   extern __shared__ float smem[];
@@ -68,12 +73,20 @@ __global__ void __launch_bounds__(kWarps * 32) dtw_ea_fused_kernel(
   const int q = (int)(lane_id / K);
   const int start = starts[lane_id];
   if (start < 0 || start > n_ref - m) {  // out of range: flagged, not read
-    if (t == 0) out[lane_id] = NAN;
+    if (t == 0) {
+      out[lane_id] = NAN;
+      if constexpr (kInfo) write_counts(rows, cells, lane_id,
+                                        dead_lane_counts(m, window));
+    }
     return;
   }
   const float ubv = ub[lane_id];
   if (ubv < 0.f) {  // dead-lane sentinel: the lane would die on row 0
-    if (t == 0) out[lane_id] = INFINITY;
+    if (t == 0) {
+      out[lane_id] = INFINITY;
+      if constexpr (kInfo) write_counts(rows, cells, lane_id,
+                                        dead_lane_counts(m, window));
+    }
     return;
   }
   const RefWindow win{ref + start, mu[lane_id], sg[lane_id], m};
@@ -82,46 +95,54 @@ __global__ void __launch_bounds__(kWarps * 32) dtw_ea_fused_kernel(
     cb = smem + (size_t)wib * m;
     cb_suffix(win, upper + (size_t)q * m, lower + (size_t)q * m, cb, m, t);
   }
-  const float d = dtw_lane<CPT, false>(queries + (size_t)q * n, win, cb, ubv,
-                                       nullptr, n, m, window, bw);
-  if (t == 0) out[lane_id] = d;
+  Counts c;
+  const float d = dtw_lane<CPT, false, kInfo>(
+      queries + (size_t)q * n, win, cb, ubv, nullptr, n, m, window, bw, &c);
+  if (t == 0) {
+    out[lane_id] = d;
+    if constexpr (kInfo) write_counts(rows, cells, lane_id, c);
+  }
 }
 
 template <int CPT>
 int launch(const float* queries, const float* ref, const int* starts,
            const float* mu, const float* sg, const float* ub,
-           const float* upper, const float* lower, float* out, int n_ref,
-           long long lanes, int K, int n, int m, int window, int bw,
-           int use_cb, cudaStream_t stream) {
+           const float* upper, const float* lower, float* out, int* rows,
+           int* cells, int n_ref, long long lanes, int K, int n, int m,
+           int window, int bw, int use_cb, cudaStream_t stream) {
+  const auto kernel = rows != nullptr ? dtw_ea_fused_kernel<CPT, true>
+                                      : dtw_ea_fused_kernel<CPT, false>;
   const int warps = block_warps(kWarps, m, use_cb);
   const size_t smem = use_cb ? (size_t)warps * m * sizeof(float) : 0;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        dtw_ea_fused_kernel<CPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const long long blocks = (lanes + warps - 1) / warps;
-  dtw_ea_fused_kernel<CPT><<<(unsigned)blocks, warps * 32, smem, stream>>>(
-      queries, ref, starts, mu, sg, ub, upper, lower, out, lanes, n_ref, K, n,
-      m, window, bw, use_cb);
+  kernel<<<(unsigned)blocks, warps * 32, smem, stream>>>(
+      queries, ref, starts, mu, sg, ub, upper, lower, out, rows, cells, lanes,
+      n_ref, K, n, m, window, bw, use_cb);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// rows and cells: (Q * K,) int32 counters, or both null for the
+// counter-free kernel.
 extern "C" int dtw_ea_fused_launch(
     const float* queries, const float* ref, const int* starts, const float* mu,
     const float* sg, const float* ub, const float* upper, const float* lower,
-    float* out, int n_ref, int n_queries, int K, int n, int m, int window,
-    int bw, int use_cb, int cpt, void* stream) {
+    float* out, int* rows, int* cells, int n_ref, int n_queries, int K, int n,
+    int m, int window, int bw, int use_cb, int cpt, void* stream) {
   if (bw < 1 || bw > 32 * cpt) return (int)cudaErrorInvalidValue;
   const long long lanes = (long long)n_queries * K;
   const cudaStream_t s = (cudaStream_t)stream;
 #define DTW_A(C)                                                             \
   case C:                                                                    \
     return launch<C>(queries, ref, starts, mu, sg, ub, upper, lower, out,    \
-                     n_ref, lanes, K, n, m, window, bw, use_cb, s);
+                     rows, cells, n_ref, lanes, K, n, m, window, bw, use_cb, \
+                     s);
   switch (cpt) {
     DTW_CPT_CASES(DTW_A)
     default:

@@ -8,6 +8,8 @@
 // EAPrunedDTW against its own ub. Output: the distance, or +inf where the
 // lane abandoned; a negative ub is the dead-lane sentinel (+inf, no row
 // run). With n != m the band is the full row (bw = m <= 1024), as in repro.
+// With counters (rows != nullptr, the TPU kernel's emit_info), lane 0 of
+// each warp also writes the lane's EAInfo rows and cells, as kernel A does.
 //
 // Design: kernel A's (dtw_ea_fused.cu): one warp per lane, a few lanes a
 // thread block, the rows of the shared DP program (dtw_band.cuh), with the
@@ -27,13 +29,15 @@ using namespace dtw_band;
 
 constexpr int kWarps = 4;  // lanes a thread block, at most
 
-template <int CPT>
+template <int CPT, bool kInfo>
 __global__ void __launch_bounds__(kWarps * 32) dtw_ea_slab_kernel(
     const float* __restrict__ queries,  // (Q, n) z-normalized queries
     const float* __restrict__ windows,  // (Q * K, m) normalized windows
     const float* __restrict__ cbs,      // (Q * K, m) cb suffixes, or null
     const float* __restrict__ ub,       // (Q * K,) upper bound per lane
     float* __restrict__ out,            // (Q * K,)
+    int* __restrict__ rows,             // (Q * K,) iff kInfo
+    int* __restrict__ cells,            // (Q * K,) iff kInfo
     long long lanes, int K, int n, int m, int window, int bw) {
   extern __shared__ float smem[];
   const int t = threadIdx.x & 31, wib = threadIdx.x >> 5;
@@ -42,7 +46,11 @@ __global__ void __launch_bounds__(kWarps * 32) dtw_ea_slab_kernel(
   const int q = (int)(lane_id / K);
   const float ubv = ub[lane_id];
   if (ubv < 0.f) {  // dead-lane sentinel: the lane would die on row 0
-    if (t == 0) out[lane_id] = INFINITY;
+    if (t == 0) {
+      out[lane_id] = INFINITY;
+      if constexpr (kInfo) write_counts(rows, cells, lane_id,
+                                        dead_lane_counts(m, window));
+    }
     return;
   }
   const SlabWindow win{windows + lane_id * m, m};
@@ -51,43 +59,52 @@ __global__ void __launch_bounds__(kWarps * 32) dtw_ea_slab_kernel(
     cb = smem + (size_t)wib * m;
     cb_copy(cbs + lane_id * m, cb, m, t);
   }
-  const float d = dtw_lane<CPT, false>(queries + (size_t)q * n, win, cb, ubv,
-                                       nullptr, n, m, window, bw);
-  if (t == 0) out[lane_id] = d;
+  Counts c;
+  const float d = dtw_lane<CPT, false, kInfo>(
+      queries + (size_t)q * n, win, cb, ubv, nullptr, n, m, window, bw, &c);
+  if (t == 0) {
+    out[lane_id] = d;
+    if constexpr (kInfo) write_counts(rows, cells, lane_id, c);
+  }
 }
 
 template <int CPT>
 int launch(const float* queries, const float* windows, const float* cbs,
-           const float* ub, float* out, long long lanes, int K, int n, int m,
-           int window, int bw, cudaStream_t stream) {
+           const float* ub, float* out, int* rows, int* cells,
+           long long lanes, int K, int n, int m, int window, int bw,
+           cudaStream_t stream) {
+  const auto kernel = rows != nullptr ? dtw_ea_slab_kernel<CPT, true>
+                                      : dtw_ea_slab_kernel<CPT, false>;
   const int use_cb = cbs != nullptr;
   const int warps = block_warps(kWarps, m, use_cb);
   const size_t smem = use_cb ? (size_t)warps * m * sizeof(float) : 0;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        dtw_ea_slab_kernel<CPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const long long blocks = (lanes + warps - 1) / warps;
-  dtw_ea_slab_kernel<CPT><<<(unsigned)blocks, warps * 32, smem, stream>>>(
-      queries, windows, cbs, ub, out, lanes, K, n, m, window, bw);
+  kernel<<<(unsigned)blocks, warps * 32, smem, stream>>>(
+      queries, windows, cbs, ub, out, rows, cells, lanes, K, n, m, window,
+      bw);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// rows and cells: (Q * K,) int32 counters, or both null for the
+// counter-free kernel.
 extern "C" int dtw_ea_slab_launch(
     const float* queries, const float* windows, const float* cbs,
-    const float* ub, float* out, int n_queries, int K, int n, int m,
-    int window, int bw, int cpt, void* stream) {
+    const float* ub, float* out, int* rows, int* cells, int n_queries, int K,
+    int n, int m, int window, int bw, int cpt, void* stream) {
   if (bw < 1 || bw > 32 * cpt) return (int)cudaErrorInvalidValue;
   const long long lanes = (long long)n_queries * K;
   const cudaStream_t s = (cudaStream_t)stream;
 #define DTW_D(C)                                                             \
   case C:                                                                    \
-    return launch<C>(queries, windows, cbs, ub, out, lanes, K, n, m, window, \
-                     bw, s);
+    return launch<C>(queries, windows, cbs, ub, out, rows, cells, lanes, K, \
+                     n, m, window, bw, s);
   switch (cpt) {
     DTW_CPT_CASES(DTW_D)
     default:

@@ -163,12 +163,15 @@ def dtw_ea_fused_plain(
     return (out, *res[1:]) if count else out
 
 
-def _sweep(lb, starts, ub_init, block_k, evaluate, chunk):
+def _sweep(lb, starts, ub_init, block_k, evaluate, chunk, lane_gate=True):
     """The sequential best-first block sweep of ``repro``'s
     ``core/batch.py::block_sweep`` for Q queries at once.
 
-    A block runs iff its head ``lb`` is below the carried incumbent; a lane
-    of a running block with ``lb >= ub`` is dead; the fold is strict
+    A block runs iff its head ``lb`` is below the carried incumbent; with
+    ``lane_gate`` (the EA sweeps) a lane of a running block with
+    ``lb >= ub`` is dead, without it (``repro``'s ``block_sweep`` for the
+    ``full``/``pruned`` baselines) every lane with a finite ``lb`` runs
+    against the query's incumbent; the fold is strict
     improvement with the first lane on ties; the sweep of a query ends at its
     first gated block. Lanes are evaluated ``chunk`` at a time, each chunk at
     the incumbent its sweep held when the chunk began (``evaluate(lo, hi,
@@ -179,8 +182,9 @@ def _sweep(lb, starts, ub_init, block_k, evaluate, chunk):
     only falls, so a lane that abandons under the chunk's ``ub`` abandons
     under its block's too, and a lane that finishes has the same distance
     under any ``ub`` it finishes under (``csrc/dtw_band.cuh``;
-    ``tests/test_torch_persistent.py`` checks it), so a distance at or above
-    its block's ``ub`` cannot fold.
+    ``tests/test_torch_persistent.py`` checks it; for ``dtw`` and
+    ``pruned_dtw`` ``tests/test_torch_baselines.py`` does), so a distance at
+    or above its block's ``ub`` cannot fold.
     """
     nq, k = lb.shape
     dev = lb.device
@@ -200,7 +204,9 @@ def _sweep(lb, starts, ub_init, block_k, evaluate, chunk):
         if not on.any():
             break
         ub_t = torch.tensor(ub, device=dev)
-        live = torch.tensor(on, device=dev)[:, None] & (lbc < ub_t[:, None])
+        live = torch.tensor(on, device=dev)[:, None].expand(lbc.shape)
+        if lane_gate:
+            live = live & (lbc < ub_t[:, None])
         d = evaluate(lo, hi, torch.where(live, ub_t[:, None], DEAD_LANE_UB))
         d = torch.where(live & torch.isfinite(lbc), d, float("inf"))
         dn = d.cpu().numpy()
@@ -210,8 +216,10 @@ def _sweep(lb, starts, ub_init, block_k, evaluate, chunk):
             on &= lbn[:, s] < ub
             if not on.any():
                 break
-            dd = np.where(on[:, None] & (lbn[:, s:e] < ub[:, None]),
-                          dn[:, s:e], inf)
+            run = on[:, None]
+            if lane_gate:
+                run = run & (lbn[:, s:e] < ub[:, None])
+            dd = np.where(run, dn[:, s:e], inf)
             j = dd.argmin(axis=1)
             dmin = dd[q_ix, j]
             imp = dmin < ub

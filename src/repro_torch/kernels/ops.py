@@ -4,7 +4,9 @@ Each wrapper checks its tensors, then dispatches on their device: CPU
 tensors run the kernel's plain PyTorch version; CUDA tensors launch the
 kernel or raise. There is no fallback from the kernel to the plain version.
 Each wrapper counts its kernel launches in a plain int attribute,
-``<wrapper>.launches``, incremented only where it launches its kernel. The
+``<wrapper>.launches``, incremented only where it launches its kernel (the
+counter variants of kernels A and D, ``with_info=True``, count as launches
+of their kernel). The
 two persistent wrappers also keep ``<wrapper>.lanes_run``: after a launch
 on the card, a ``(Q,)`` int32 tensor of the lanes of each query that passed
 the gate and ran (``None`` before the first).
@@ -66,9 +68,6 @@ LB_WINDOWS = 256
 LB_SMEM_BUDGET = (228 * 1024) // 2 - 1024
 LB_SMEM_MAX = 227 * 1024
 LB_QUERY_TILES = (8, 4, 2, 1)
-
-_COUNTERS = ("with_info counters are not ported yet (ROADMAP.md Queue 1 "
-             "item 6, 'Slab arms, counters, baselines')")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -205,7 +204,8 @@ def dtw_ea_multi_fused(
     block_k: int = 8,
     row_block: int = 128,
     ref_budget: int | None = None,
-) -> torch.Tensor:
+    with_info: bool = False,
+):
     """One fused EAPrunedDTW round: ``(Q, K)`` distances, ``+inf`` where a
     lane abandoned.
 
@@ -223,6 +223,14 @@ def dtw_ea_multi_fused(
       u, low: ``(Q, m)`` float32 query envelopes, required when ``use_cb``.
       band_width: columns per row; ``None`` = ``default_band_width``.
       block_k, row_block, ref_budget: Pallas tiling knobs; no effect.
+      with_info: also return per-lane ``(rows, cells)`` int32 counters
+        (``repro``'s ``EAInfo``: rows issued, the abandoning row included,
+        and the cells that exist in them; a dead or out-of-range lane
+        counts row 0). On the card this launches the counter variant of
+        the kernel.
+
+    Returns ``(Q, K)`` float32 distances; with ``with_info`` a ``(dists,
+    rows, cells)`` tuple of ``(Q, K)`` tensors.
     """
     del block_k, row_block, ref_budget
     for name, t in (("queries", queries), ("ref", ref), ("starts", starts)):
@@ -252,26 +260,26 @@ def dtw_ea_multi_fused(
     if dev.type == "cpu":
         return dtw_ea_fused_plain(
             queries, ref, starts, mu, sg, ub, window, m, bw,
-            u=u, low=low, use_cb=use_cb,
+            u=u, low=low, use_cb=use_cb, count=with_info,
         )
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
     cpt = cols_per_thread(bw)
-    out = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    out, counts = _round_outputs(nq, k, dev, with_info)
     if nq * k == 0:
-        return out
+        return (out, *counts) if with_info else out
     launch, err = _lib("dtw_ea_fused", "dtw_ea_fused_launch",
-                       [_P] * 9 + [_I] * 9 + [_P])
+                       [_P] * 11 + [_I] * 9 + [_P])
     code = launch(
         queries.data_ptr(), ref.data_ptr(), starts.data_ptr(), mu.data_ptr(),
         sg.data_ptr(), ub.data_ptr(),
         u.data_ptr() if use_cb else None, low.data_ptr() if use_cb else None,
-        out.data_ptr(), ref.shape[0], nq, k, n, m, window, bw, int(use_cb),
-        cpt, _stream(dev),
+        out.data_ptr(), *_ptrs(counts), ref.shape[0], nq, k, n, m, window,
+        bw, int(use_cb), cpt, _stream(dev),
     )
     _raise_on(code, err, "dtw_ea_fused")
     dtw_ea_multi_fused.launches += 1
-    return out
+    return (out, *counts) if with_info else out
 
 
 dtw_ea_multi_fused.launches = 0
@@ -356,6 +364,22 @@ def lb_keogh_all_windows(
 lb_keogh_all_windows.launches = 0
 
 
+def _round_outputs(nq: int, k: int, dev, with_info: bool):
+    """A round kernel's ``(Q, K)`` distances and, with ``with_info``, its
+    ``(rows, cells)`` int32 counters (else ``()``); the kernel writes every
+    lane of each."""
+    out = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    if not with_info:
+        return out, ()
+    return out, tuple(torch.empty((nq, k), dtype=torch.int32, device=dev)
+                      for _ in range(2))
+
+
+def _ptrs(counts) -> tuple:
+    """The counters' pointers for a round kernel: both null without."""
+    return tuple(t.data_ptr() for t in counts) if counts else (None, None)
+
+
 def _as_lanes(ub, nq: int, k: int, dev) -> torch.Tensor:
     """Per-lane bounds: a scalar, ``(Q, 1)`` or ``(Q, K)`` as ``(Q, K)``."""
     ub = torch.as_tensor(ub, dtype=torch.float32, device=dev)
@@ -372,7 +396,7 @@ def dtw_ea_multi(
     block_k: int = 8,
     row_block: int = 128,
     with_info: bool = False,
-) -> torch.Tensor:
+):
     """One slab round of EAPrunedDTW: ``(Q, K)`` distances, ``+inf`` where
     a lane abandoned.
 
@@ -387,12 +411,14 @@ def dtw_ea_multi(
       band_width: columns per row; ``None`` = ``default_band_width``, or the
         full row when ``n != m``.
       block_k, row_block: Pallas tiling knobs; no effect.
-      with_info: the ``EAInfo`` counters are not ported yet (ROADMAP.md
-        Queue 1 item 6); ``True`` raises ``NotImplementedError``.
+      with_info: also return per-lane ``(rows, cells)`` int32 counters, as
+        ``dtw_ea_multi_fused`` does (the counter variant of kernel D on the
+        card).
+
+    Returns ``(Q, K)`` float32 distances; with ``with_info`` a ``(dists,
+    rows, cells)`` tuple of ``(Q, K)`` tensors.
     """
     del block_k, row_block
-    if with_info:
-        raise NotImplementedError(_COUNTERS)
     for name, t in (("queries", queries), ("candidates", candidates)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
@@ -410,23 +436,25 @@ def dtw_ea_multi(
     ub_l = _as_lanes(ub, nq, k, dev)
 
     if dev.type == "cpu":
-        return dtw_ea_plain(queries, candidates, ub_l, window, bw, cb=cb)
+        return dtw_ea_plain(queries, candidates, ub_l, window, bw, cb=cb,
+                            count=with_info)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
     cpt = cols_per_thread(bw)
-    out = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    out, counts = _round_outputs(nq, k, dev, with_info)
     if nq * k == 0:
-        return out
+        return (out, *counts) if with_info else out
     launch, err = _lib("dtw_ea_slab", "dtw_ea_slab_launch",
-                       [_P] * 5 + [_I] * 7 + [_P])
+                       [_P] * 7 + [_I] * 7 + [_P])
     code = launch(
         queries.data_ptr(), candidates.data_ptr(),
         None if cb is None else cb.data_ptr(), ub_l.data_ptr(),
-        out.data_ptr(), nq, k, n, m, window, bw, cpt, _stream(dev),
+        out.data_ptr(), *_ptrs(counts), nq, k, n, m, window, bw, cpt,
+        _stream(dev),
     )
     _raise_on(code, err, "dtw_ea_slab")
     dtw_ea_multi.launches += 1
-    return out
+    return (out, *counts) if with_info else out
 
 
 dtw_ea_multi.launches = 0
@@ -442,18 +470,20 @@ def dtw_ea(
     block_k: int = 8,
     row_block: int = 128,
     with_info: bool = False,
-) -> torch.Tensor:
+):
     """Single-query slab round: ``dtw_ea_multi`` with ``Q = 1``.
 
     ``query`` is ``(n,)``, ``candidates`` and ``cb`` ``(K, m)``, ``ub`` a
-    scalar or ``(K,)``. Returns ``(K,)`` distances.
+    scalar or ``(K,)``. Returns ``(K,)`` distances; with ``with_info`` a
+    ``(dists, rows, cells)`` tuple of ``(K,)`` tensors.
     """
     ub = torch.as_tensor(ub, dtype=torch.float32, device=candidates.device)
-    return dtw_ea_multi(
+    out = dtw_ea_multi(
         query[None], candidates[None], ub[None] if ub.dim() == 1 else ub,
         window, cb=None if cb is None else cb[None], band_width=band_width,
         block_k=block_k, row_block=row_block, with_info=with_info,
-    )[0]
+    )
+    return tuple(t[0] for t in out) if with_info else out[0]
 
 
 def _persistent_outputs(nq: int, dev):

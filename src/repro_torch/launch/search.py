@@ -1,12 +1,15 @@
-"""Similarity-search driver of the port (the CLI of ``repro/launch/search.py``
-for the two EA variants).
+"""Similarity-search driver of the port (the CLI of ``repro/launch/search.py``,
+without its ``--distributed`` mode).
 
   PYTHONPATH=src python -m repro_torch.launch.search --dataset ECG \
       --ref-len 100000 --query-len 256 --window-ratio 0.1 --variant eapruned \
       --device cuda
 
-``--variant all`` runs both EA variants. ``--device`` defaults to the card;
-pass ``--device cpu`` to run the plain versions of the kernels on the CPU.
+``--variant all`` runs the paper's four suites (``full``, ``pruned``,
+``eapruned``, ``eapruned_nolb``) and prints the paper-style comparison:
+time and the pruning counters, which are -1 here as in ``repro``'s driver
+(it runs the counter-free rounds). ``--device`` defaults to the card; pass
+``--device cpu`` to run the plain versions of the kernels on the CPU.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ import torch
 from repro_torch.core.common import resolve_device
 from repro_torch.data.synthetic import DATASETS, make_dataset, make_queries
 from repro_torch.search import subsequence_search
-from repro_torch.search.pipeline import MULTI_VARIANTS
+from repro_torch.search.pipeline import VARIANTS
 
 
 def _sync(dev: torch.device) -> None:
@@ -33,7 +36,7 @@ def main(argv=None) -> None:
     ap.add_argument("--query-len", type=int, default=256)
     ap.add_argument("--window-ratio", type=float, default=0.1)
     ap.add_argument("--variant", default="eapruned",
-                    choices=MULTI_VARIANTS + ("all",))
+                    choices=VARIANTS + ("all",))
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--n-queries", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
@@ -45,7 +48,7 @@ def main(argv=None) -> None:
     ref = make_dataset(args.dataset, args.ref_len, args.seed)
     queries = make_queries(args.dataset, args.n_queries, args.query_len, args.seed)
     window = max(int(args.query_len * args.window_ratio), 1)
-    variants = list(MULTI_VARIANTS) if args.variant == "all" else [args.variant]
+    variants = list(VARIANTS) if args.variant == "all" else [args.variant]
 
     print(
         f"dataset={args.dataset} N={args.ref_len} l={args.query_len} "
@@ -65,7 +68,8 @@ def main(argv=None) -> None:
             print(
                 f"  {variant:14s} q{qi}: start={int(res.best_start)} "
                 f"dist={float(res.best_dist):.5f} lanes={int(res.lanes)} "
-                f"rounds={int(res.rounds)} ({dt:.2f}s)"
+                f"rounds={int(res.rounds)} rows={int(res.rows)} "
+                f"cells={int(res.cells)} ({dt:.2f}s)"
             )
         print(f"  {variant:14s} total {tot:.2f}s")
 

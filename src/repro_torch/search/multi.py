@@ -70,7 +70,9 @@ def multi_query_search(
     Args as ``repro.search.multi.multi_query_search`` (without ``backend``),
     plus ``device``: the search runs on CUDA unless ``device="cpu"`` is
     passed; with no device and no CUDA it raises. ``ref``/``queries`` may
-    be arrays or tensors and are computed in float32.
+    be arrays or tensors and are computed in float32. ``with_info`` (host
+    rounds only) collects each query's ``EAInfo`` rows and cells, in int64;
+    without it they are -1.
 
     Returns: ``MultiSearchResult`` of per-query ``(Q,)`` tensors on the
     device.
@@ -94,7 +96,8 @@ def multi_query_search(
         allowed_variants=MULTI_VARIANTS,
     )
     state, stats, n_quar = _offline_search_impl(
-        as_float32(ref, dev), as_float32(queries, dev), ub_init, plan
+        as_float32(ref, dev), as_float32(queries, dev), ub_init, plan,
+        with_info=with_info,
     )
     return MultiSearchResult(
         best_start=state.best,

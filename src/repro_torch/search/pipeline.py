@@ -1,8 +1,10 @@
 """The staged search pipeline: SearchPlan → prepare → cascade → execute.
 
-Port of ``repro/search/pipeline.py`` for offline search with the
-``eapruned`` and ``eapruned_nolb`` variants, under both round drivers and
-both gather modes. Stages::
+Port of ``repro/search/pipeline.py`` for offline search: the
+``eapruned`` and ``eapruned_nolb`` variants under both round drivers and
+both gather modes, with the ``EAInfo`` counters on the host rounds
+(``with_info``), and the ``full`` / ``pruned`` baselines
+(``_baseline_search_impl``). Stages::
 
     SearchPlan (make_plan: validated knobs)
         ├─ prepare_ref      window stats + §2.6 quarantine mask/sanitize
@@ -20,9 +22,9 @@ both gather modes. Stages::
 ``repro`` runs the round loop as a ``lax.while_loop``; here it is a Python
 loop that reads ``any(active)`` once per round, the only host sync of a
 round (the round kernels check their lanes on the device). The persistent
-sweep makes one host sync, the out-of-range count of kernel C. Not ported
-yet, and raising ``NotImplementedError`` naming ROADMAP.md Queue 1 item 6:
-``with_info=True`` and the ``full``/``pruned`` variants.
+sweep makes one host sync, the out-of-range count of kernel C. The
+counters add up per query in int64 (``repro`` adds them in int32, which a
+query at N = 1e6, l = 1024 overflows); they are -1 when not collected.
 """
 from __future__ import annotations
 
@@ -33,13 +35,17 @@ import torch
 
 from repro_torch.core import guards
 from repro_torch.core.batch import (
+    block_sweep,
+    ea_pruned_dtw_batch,
     ea_pruned_dtw_multi_batch,
     ea_pruned_dtw_multi_batch_fused,
     ea_pruned_dtw_persistent,
     ea_pruned_dtw_persistent_fused,
 )
-from repro_torch.core.common import DEAD_LANE_UB, pad_lanes_to_blocks
+from repro_torch.core.common import BIG, DEAD_LANE_UB, pad_lanes_to_blocks
+from repro_torch.core.dtw import dtw_batch
 from repro_torch.core.lower_bounds import cascade_keogh_cumulative, envelope
+from repro_torch.core.pruned_dtw import pruned_dtw_batch
 from repro_torch.search.cascade import cascade_lower_bounds
 from repro_torch.search.incumbents import IncumbentState, fold_min, initial_state
 from repro_torch.search.znorm import (
@@ -54,8 +60,6 @@ VARIANTS = ("full", "pruned", "eapruned", "eapruned_nolb")
 MULTI_VARIANTS = ("eapruned", "eapruned_nolb")
 ROUND_DRIVERS = ("host", "persistent")
 GATHER_MODES = ("fused", "slab")
-
-_SLAB_COUNTERS = "ROADMAP.md Queue 1 item 6, 'Slab arms, counters, baselines'"
 
 
 @dataclass(frozen=True)
@@ -112,8 +116,7 @@ def make_plan(
     with_info: bool = False,
     allowed_variants: tuple[str, ...] = VARIANTS,
 ) -> SearchPlan:
-    """Validate knobs into a :class:`SearchPlan` (``repro``'s checks, then
-    ``NotImplementedError`` for what this slice does not port)."""
+    """Validate knobs into a :class:`SearchPlan` (``repro``'s checks)."""
     if variant not in allowed_variants:
         raise guards.SearchInputError(
             f"variant {variant!r} not in {allowed_variants}"
@@ -135,14 +138,6 @@ def make_plan(
         length=length, window=window, batch=batch, band_width=band_width,
         block_k=block_k, row_block=row_block, rows_per_step=rows_per_step,
     )
-    if variant not in MULTI_VARIANTS:
-        raise NotImplementedError(
-            f"variant {variant!r} is not ported yet ({_SLAB_COUNTERS})"
-        )
-    if with_info:
-        raise NotImplementedError(
-            f"with_info stats rounds are not ported yet ({_SLAB_COUNTERS})"
-        )
     return SearchPlan(
         length=int(length), window=int(window), variant=variant,
         batch=int(batch), band_width=band_width, chunk=int(chunk),
@@ -262,21 +257,24 @@ class SearchStats(NamedTuple):
     cells: torch.Tensor      # (Q,) admissible DTW cells (-1: fast rounds)
 
 
-def _dtw_round_fused(plan, prep, pq, starts, ub_lanes, *, use_cb: bool):
+def _dtw_round_fused(plan, prep, pq, starts, ub_lanes, *, use_cb: bool,
+                     with_info: bool = False):
     """One fused-gather EAPrunedDTW round over ``(Q, K)`` lane starts:
-    kernel A slices and normalizes the windows itself."""
+    kernel A slices and normalizes the windows itself. Returns the
+    distances, or ``(distances, EAInfo)`` with ``with_info``."""
     return ea_pruned_dtw_multi_batch_fused(
         pq.qn, prep.ref, starts, ub_lanes, window=plan.window,
         mu=prep.mu, sigma=prep.sigma,
         envelopes=(pq.u, pq.low) if use_cb else None,
-        band_width=plan.band_width, **plan.knobs(),
+        band_width=plan.band_width, with_info=with_info, **plan.knobs(),
     )
 
 
-def _dtw_round_slab(plan, prep, pq, starts, ub_lanes, *, use_cb: bool):
+def _dtw_round_slab(plan, prep, pq, starts, ub_lanes, *, use_cb: bool,
+                    with_info: bool = False):
     """One slab EAPrunedDTW round: the windows gathered into a
     ``(Q, K, l)`` slab, with the ``cb`` slab beside it when ``use_cb``, for
-    kernel D."""
+    kernel D. Returns as :func:`_dtw_round_fused`."""
     cand = gather_norm_windows(prep.ref, starts, plan.length, prep.mu,
                                prep.sigma)
     cb = None
@@ -285,13 +283,28 @@ def _dtw_round_slab(plan, prep, pq, starts, ub_lanes, *, use_cb: bool):
                                       pq.low[:, None, :])
     return ea_pruned_dtw_multi_batch(
         pq.qn, cand, ub_lanes, window=plan.window,
-        band_width=plan.band_width, cb=cb, **plan.knobs(),
+        band_width=plan.band_width, cb=cb, with_info=with_info,
+        **plan.knobs(),
     )
 
 
-def _dtw_round(plan, prep, pq, starts, ub_lanes, *, use_cb: bool):
+def _dtw_round(plan, prep, pq, starts, ub_lanes, *, use_cb: bool,
+               with_info: bool = False):
+    """The plan's round (fused or slab): ``(d, EAInfo or None)``."""
     fn = _dtw_round_fused if plan.gather == "fused" else _dtw_round_slab
-    return fn(plan, prep, pq, starts, ub_lanes, use_cb=use_cb)
+    out = fn(plan, prep, pq, starts, ub_lanes, use_cb=use_cb,
+             with_info=with_info)
+    return out if with_info else (out, None)
+
+
+def _query_totals(info, nq: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-query int64 ``(rows, cells)`` of a round's ``(Q, K)`` counters
+    (zeros without counters)."""
+    if info is None:
+        z = torch.zeros(nq, dtype=torch.int64, device=dev)
+        return z, z
+    return (info.rows.sum(dim=1, dtype=torch.int64),
+            info.cells.sum(dim=1, dtype=torch.int64))
 
 
 def _dead_or(live: torch.Tensor, ub: torch.Tensor) -> torch.Tensor:
@@ -306,15 +319,17 @@ def warm_prepass(
     order: torch.Tensor,
     lb_sorted: torch.Tensor,
     state0: IncumbentState,
+    with_info: bool = False,
     offset=0,
-) -> tuple[IncumbentState, int]:
+):
     """Full-DP each query's ``min(warm_start, batch)`` best-LB candidates to
     seed the incumbents (changes work, not results). Returns
-    ``(state, pre)``."""
+    ``(state, pre, rows_pre, cells_pre)``, the counters per query in int64
+    (zeros without ``with_info``)."""
     nq, n_win = order.shape
     pre = min(int(plan.warm_start), plan.batch)
     if pre <= 0:
-        return state0, 0
+        return (state0, 0, *_query_totals(None, nq, order.device))
     if n_win < pre:
         order = torch.cat([order, order.new_zeros(nq, pre - n_win)], dim=1)
         lb_sorted = torch.cat(
@@ -327,10 +342,11 @@ def warm_prepass(
     ub_pre = _dead_or(fin & (pre_lbs < state0.ub[:, None]), state0.ub)
     if plan.gather != "fused":
         _ensure_slab_budget(plan, nq * pre, "warm_prepass")
-    d0 = _dtw_round(plan, prep, pq, pre_starts, ub_pre, use_cb=False)
+    d0, info0 = _dtw_round(plan, prep, pq, pre_starts, ub_pre, use_cb=False,
+                           with_info=with_info)
     d0 = torch.where(fin, d0, float("inf"))
     state, _ = fold_min(state0, pre_starts, d0, offset=offset)
-    return state, pre
+    return (state, pre, *_query_totals(info0, nq, order.device))
 
 
 def run_host_rounds(
@@ -341,6 +357,7 @@ def run_host_rounds(
     lb_sorted: torch.Tensor,
     state0: IncumbentState,
     *,
+    with_info: bool = False,
     offset=0,
 ) -> tuple[IncumbentState, SearchStats]:
     """The host round driver: best-first ``(Q × batch)``-lane rounds.
@@ -349,13 +366,18 @@ def run_host_rounds(
     next batch's smallest lower bound can no longer beat its incumbent; a
     finished query's lanes ride along with the dead-lane sentinel. Within a
     live query's batch, lanes whose own bound reaches the incumbent are
-    submitted dead too.
+    submitted dead too. With ``with_info`` every round is a counter round
+    (kernel A's or D's counter variant) and each query's rows and cells add
+    up in int64, its dead lanes included (one row each, as ``repro``
+    counts them); without, they are -1.
     """
     nq, n_win = order.shape
     batch = plan.batch
     dev = order.device
-    state, pre = warm_prepass(plan, prep, pq, order, lb_sorted, state0,
-                              offset=offset)
+    state, pre, rows, cells = warm_prepass(
+        plan, prep, pq, order, lb_sorted, state0, with_info=with_info,
+        offset=offset,
+    )
 
     n_rounds = -(-n_win // batch)
     pad = n_rounds * batch - n_win
@@ -381,7 +403,11 @@ def run_host_rounds(
         lbs_b = lb_p.gather(1, idx)
         ub_lanes = _dead_or(active[:, None] & (lbs_b < state.ub[:, None]),
                             state.ub)
-        d = _dtw_round(plan, prep, pq, starts, ub_lanes, use_cb=plan.use_cb)
+        d, info = _dtw_round(plan, prep, pq, starts, ub_lanes,
+                             use_cb=plan.use_cb, with_info=with_info)
+        if with_info:
+            rows_q, cells_q = _query_totals(info, nq, dev)
+            rows, cells = rows + rows_q, cells + cells_q
         d = torch.where(torch.isfinite(lbs_b) & active[:, None], d,
                         float("inf"))
         state, _ = fold_min(state, starts, d, offset=offset)
@@ -395,13 +421,14 @@ def run_host_rounds(
         active = active & more
         r = r_new
 
-    no_info = torch.full((nq,), -1, dtype=torch.int64, device=dev)
+    if not with_info:
+        rows = cells = torch.full((nq,), -1, dtype=torch.int64, device=dev)
     return state, SearchStats(
         rounds=r,
         lanes=lanes,
         lb_pruned=n_win - torch.clamp_max(lanes, n_win),
-        rows=no_info,
-        cells=no_info,
+        rows=rows,
+        cells=cells,
     )
 
 
@@ -431,7 +458,7 @@ def run_persistent(
     does not.
     """
     nq, n_win = order.shape
-    state0, pre = warm_prepass(plan, prep, pq, order, lb_sorted, state0)
+    state0, pre, _, _ = warm_prepass(plan, prep, pq, order, lb_sorted, state0)
     # The one place lanes are padded to block_k (+inf bounds, which never
     # run), as repro pads them: the kernels take a ragged final block too,
     # so this only keeps repro's slab accounting.
@@ -473,11 +500,13 @@ def run_persistent(
 
 
 def _offline_search_impl(
-    ref: torch.Tensor, queries: torch.Tensor, ub_init, plan: SearchPlan
+    ref: torch.Tensor, queries: torch.Tensor, ub_init, plan: SearchPlan,
+    with_info: bool = False,
 ) -> tuple[IncumbentState, SearchStats, torch.Tensor]:
     """prepare → cascade → host rounds or persistent sweep: the offline
     core behind ``multi_query_search`` and ``subsequence_search`` (Q=1).
-    Returns ``(IncumbentState, SearchStats, n_quar)``."""
+    Returns ``(IncumbentState, SearchStats, n_quar)``; ``with_info``
+    collects the host rounds' counters."""
     prep = prepare_ref(plan, ref)
     pq = prepare_queries(plan, queries)
     order, lb_sorted = cascade(plan, prep, pq.qn)
@@ -487,5 +516,140 @@ def _offline_search_impl(
         state, stats = run_persistent(plan, prep, pq, order, lb_sorted, state0)
     else:
         state, stats = run_host_rounds(plan, prep, pq, order, lb_sorted,
-                                       state0)
+                                       state0, with_info=with_info)
     return state, stats, prep.n_quar
+
+
+# ---------------------------------------------------------------------------
+# the full / pruned baselines: one query, a scalar incumbent
+# ---------------------------------------------------------------------------
+
+def _baseline_search_impl(
+    ref: torch.Tensor, query: torch.Tensor, plan: SearchPlan,
+    with_info: bool = False,
+) -> tuple[IncumbentState, SearchStats, torch.Tensor]:
+    """Single-query core of the paper's baselines, ``full`` (UCR: exact DTW,
+    ``core/dtw.py``) and ``pruned`` (UCR-USP: ``core/pruned_dtw.py``); port
+    of ``repro``'s ``_baseline_search_impl``, which ``subsequence_search``
+    sends these two variants to. Their distances take one scalar threshold,
+    so there is no ``(Q, K)`` lane form: the same prepare and cascade
+    stages, then host rounds with a scalar incumbent, or ``block_sweep``
+    over the gathered best-first slab for ``rounds="persistent"``. The EA
+    variants run here as ``repro`` runs them (kernel D a round, or kernel E
+    for the sweep), with their lanes on a non-finite bound submitted dead.
+
+    Counters (``with_info``, host rounds): ``pruned`` and the EA variants
+    count the rows and cells of every lane of every round, padding and
+    quarantined lanes included, as ``repro`` does; ``full`` counts
+    analytically, ``k*m`` rows and ``k*min(window cells, m*m)`` cells a
+    round of ``k`` lanes. The sweep is counter-free: one dispatch, ``rows``
+    and ``cells`` -1. Returns ``(IncumbentState, SearchStats, n_quar)``
+    shaped like Q = 1.
+    """
+    query_n = znorm(query[: plan.length])
+    prep = prepare_ref(plan, ref)
+    n_win = prep.mu.shape[0]
+    order, lb_sorted = cascade(plan, prep, query_n[None])
+    order, lb_sorted = order[0], lb_sorted[0]
+    u, low = envelope(query_n, plan.window)
+    ea = plan.variant in MULTI_VARIANTS
+    knobs = plan.knobs()
+    dev = ref.device
+
+    def evaluate(cand, ub, cb, info: bool):
+        """A batch's distances under ``ub`` (scalar or per lane) and, with
+        ``info``, its int64 ``(rows, cells)`` totals."""
+        k, m = cand.shape[0], plan.length
+        if ea:
+            out = ea_pruned_dtw_batch(
+                query_n, cand, ub, window=plan.window,
+                band_width=plan.band_width, cb=cb, with_info=info, **knobs,
+            )
+        elif plan.variant == "pruned":
+            out = pruned_dtw_batch(query_n.expand(k, -1), cand, ub,
+                                   window=plan.window, with_info=info)
+        else:
+            d = dtw_batch(query_n.expand(k, -1), cand, window=plan.window)
+            if not info:
+                return d, None
+            # full DTW issues every in-window cell
+            w = plan.window
+            win_cells = m * (2 * w + 1) - w * (w + 1)
+            return d, (torch.tensor(k * m, device=dev),
+                       torch.tensor(k * min(win_cells, m * m), device=dev))
+        if not info:
+            return out, None
+        d, counts = out
+        return d, (counts.rows.sum(dtype=torch.int64),
+                   counts.cells.sum(dtype=torch.int64))
+
+    def stats(rounds, lanes, rows=-1, cells=-1) -> SearchStats:
+        one = lambda v: torch.as_tensor(v, dtype=torch.int64,
+                                        device=dev).reshape(1)
+        return SearchStats(
+            rounds=one(rounds), lanes=one(lanes),
+            lb_pruned=one(n_win - min(int(lanes), n_win)),
+            rows=one(rows), cells=one(cells),
+        )
+
+    if plan.rounds == "persistent":
+        lb_p, order_p, _ = pad_lanes_to_blocks(plan.block_k, lb_sorted, order)
+        # The baselines take gathered windows whatever plan.gather says,
+        # as in repro; the slab must still fit the budget.
+        _ensure_slab_budget(plan, order_p.shape[0], "baseline persistent")
+        cand_all = gather_norm_windows(prep.ref, order_p, plan.length,
+                                       prep.mu, prep.sigma)
+        seed = torch.full((1,), BIG, dtype=torch.float32, device=dev)
+        if ea:
+            env = (u[None], low[None]) if plan.use_cb else None
+            bd, bs, blocks = ea_pruned_dtw_persistent(
+                query_n[None], cand_all[None], lb_p[None], order_p[None],
+                seed, window=plan.window, band_width=plan.band_width,
+                envelopes=env, **knobs,
+            )
+            ub, best, blocks = bd[0], bs[0], blocks[0]
+        else:
+            ub, best, blocks = block_sweep(
+                cand_all, lb_p, order_p, seed[0], plan.block_k,
+                lambda c, lbb, ub_lanes: evaluate(c, ub_lanes, None, False)[0],
+            )
+        lanes = min(int(blocks) * plan.block_k, n_win)
+        state = IncumbentState(ub=ub.reshape(1),
+                               best=best.to(order.dtype).reshape(1))
+        # rounds counts dispatches: one sweep
+        return state, stats(1, lanes), prep.n_quar
+
+    batch = plan.batch
+    n_rounds = -(-n_win // batch)
+    pad = n_rounds * batch - n_win
+    order_p = torch.cat([order, order.new_zeros(pad)])
+    lb_p = torch.cat([lb_sorted, lb_sorted.new_full((pad,), float("inf"))])
+    ub = torch.tensor(BIG, dtype=torch.float32, device=dev)
+    best = torch.tensor(-1, dtype=order.dtype, device=dev)
+    r = 0
+    rows = cells = torch.zeros((), dtype=torch.int64, device=dev)
+    while r < n_rounds:
+        if plan.use_lb and not bool(lb_p[r * batch] < ub):
+            break
+        starts = order_p[r * batch : (r + 1) * batch]
+        lbs = lb_p[r * batch : (r + 1) * batch]
+        cand = gather_norm_windows(prep.ref, starts, plan.length, prep.mu,
+                                   prep.sigma)
+        cb = cascade_keogh_cumulative(cand, u, low) if plan.use_cb else None
+        fin = torch.isfinite(lbs)
+        # EA lanes on a non-finite bound (padding, quarantine) ride dead;
+        # full/pruned take the scalar incumbent on every lane.
+        ub_b = torch.where(fin, ub, DEAD_LANE_UB) if ea else ub
+        d, counts = evaluate(cand, ub_b, cb, with_info)
+        if with_info:
+            rows, cells = rows + counts[0], cells + counts[1]
+        d = torch.where(fin, d, float("inf"))
+        k = torch.argmin(d)
+        improved = d[k] < ub
+        ub = torch.where(improved, d[k], ub)
+        best = torch.where(improved, starts[k], best)
+        r += 1
+    state = IncumbentState(ub=ub.reshape(1), best=best.reshape(1))
+    if with_info:
+        return state, stats(r, r * batch, rows, cells), prep.n_quar
+    return state, stats(r, r * batch), prep.n_quar

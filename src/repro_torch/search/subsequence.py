@@ -1,9 +1,12 @@
 """Single-query subsequence search (port of ``repro/search/subsequence.py``).
 
-The EA variants run as the Q=1 case of the multi-query core
-(``pipeline._offline_search_impl``), as in ``repro``. The ``full`` /
-``pruned`` baselines and multivariate queries are not ported yet
-(ROADMAP.md Queue 1 item 6) and raise ``NotImplementedError``.
+The paper's four suites: ``full`` (UCR), ``pruned`` (UCR-USP),
+``eapruned`` (UCR-MON) and ``eapruned_nolb``. The EA variants run as the
+Q=1 case of the multi-query core (``pipeline._offline_search_impl``), the
+two baselines on the pipeline's single-query core
+(``pipeline._baseline_search_impl``), as in ``repro``. A multivariate
+``(l, dims)`` query raises ``NotImplementedError``: ``repro``'s search
+fails on one too (ROADMAP.md Queue 3).
 """
 from __future__ import annotations
 
@@ -16,8 +19,10 @@ from repro_torch.core import guards
 from repro_torch.core.common import resolve_device
 from repro_torch.search.multi import as_float32
 from repro_torch.search.pipeline import (
+    MULTI_VARIANTS,
     ROUND_DRIVERS,
     VARIANTS,
+    _baseline_search_impl,
     _offline_search_impl,
     make_plan,
 )
@@ -59,15 +64,19 @@ def subsequence_search(
 
     Args as ``repro.search.subsequence.subsequence_search`` (without
     ``backend``), plus ``device`` (CUDA unless ``"cpu"`` is passed; with
-    no device and no CUDA it raises). Returns ``SearchResult`` of 0-d
-    tensors on the device.
+    no device and no CUDA it raises). ``with_info`` (host rounds only)
+    collects the rows and cells the search issues, in int64; without it
+    they are -1. Returns ``SearchResult`` of 0-d tensors on the device.
     """
     dev = resolve_device(device)
     guards.ensure_series(ref, "ref", ndim=1, min_len=length)
     if len(getattr(query, "shape", np.shape(query))) != 1:
         raise NotImplementedError(
-            "multivariate queries are not ported yet (ROADMAP.md Queue 1 "
-            "item 6, 'Slab arms, counters, baselines')"
+            "multivariate (l, dims) queries have no search path: repro's "
+            "subsequence_search fails on one with a TypeError (sub got "
+            "incompatible shapes for broadcasting), so there is no "
+            "reference to port (ROADMAP.md Queue 3); core.dtw takes "
+            "(n, dims) series"
         )
     guards.ensure_series(query, "query", ndim=1, min_len=length)
     guards.ensure_finite(query, "query")
@@ -78,9 +87,16 @@ def subsequence_search(
         quarantine=quarantine, gather=gather, slab_budget=slab_budget,
         with_info=with_info,
     )
-    state, stats, n_quar = _offline_search_impl(
-        as_float32(ref, dev), as_float32(query, dev)[None, :], None, plan
-    )
+    if variant in MULTI_VARIANTS:
+        state, stats, n_quar = _offline_search_impl(
+            as_float32(ref, dev), as_float32(query, dev)[None, :], None, plan,
+            with_info=with_info,
+        )
+    else:
+        state, stats, n_quar = _baseline_search_impl(
+            as_float32(ref, dev), as_float32(query, dev), plan,
+            with_info=with_info,
+        )
     return SearchResult(
         best_start=state.best[0],
         best_dist=state.ub[0],

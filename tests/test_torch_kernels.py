@@ -183,12 +183,22 @@ def test_round_out_of_range_starts_are_nan():
 
 
 def test_batch_round_with_info_not_ported():
+    """The counters were once refused here; the round now returns
+    ``(distances, EAInfo)`` with the counter-free round's distances and the
+    plain version's per-lane counters (``tests/test_torch_counters.py``
+    holds them against ``repro``)."""
     ref, qn, mu, sigma, u, low, starts = _case()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ea_pruned_dtw_multi_batch_fused(
-            _t(qn), _t(ref), _t(starts), 1e30, WINDOW, _t(mu), _t(sigma),
-            with_info=True,
-        )
+    d, info = ea_pruned_dtw_multi_batch_fused(
+        _t(qn), _t(ref), _t(starts), 1e30, WINDOW, _t(mu), _t(sigma),
+        with_info=True,
+    )
+    free = ea_pruned_dtw_multi_batch_fused(
+        _t(qn), _t(ref), _t(starts), 1e30, WINDOW, _t(mu), _t(sigma),
+    )
+    assert torch.equal(d, free)
+    assert info.rows.dtype == torch.int32 and info.cells.dtype == torch.int32
+    assert info.rows.tolist() == [[LENGTH] * K] * 2  # ub = BIG: every row
+    assert (info.cells > LENGTH).all()
 
 
 def _lb_inputs(n=1200, length=40, window=4, seed=5):

@@ -315,8 +315,15 @@ def test_make_plan_validation_matches_repro(kw):
     (dict(variant="pruned"), "item 6"),
 ])
 def test_make_plan_unported_raise_with_roadmap_item(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        make_plan(length=16, window=2, **kw)
+    """Once refused as unported (ROADMAP.md Queue 1 ``item``), these
+    knobs now make the plan ``repro`` makes."""
+    from repro.search.pipeline import make_plan as r_make_plan
+
+    del item
+    mine = make_plan(length=16, window=2, **kw)
+    theirs = r_make_plan(length=16, window=2, **kw)
+    for knob in ("variant", "use_lb", "use_cb", "rounds", "gather"):
+        assert getattr(mine, knob) == getattr(theirs, knob)
 
 
 def test_ensure_finite_and_series():
