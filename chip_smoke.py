@@ -48,7 +48,29 @@ Drives ``repro_torch`` (never JAX, never ``repro``) on ``cuda:0``:
      same N, each against its fused counterpart: host rounds with
      ``gather="slab"`` (kernel D) and the persistent sweep with
      ``gather="slab"`` (kernel E, over a 33 GB slab; its allocation peak is
-     printed);
+     printed). Then streaming ("phase 4 stream"): ``StreamSearchEngine``
+     over the same N = 1e6 reference and queries, fed in seeded ragged
+     arrivals of 1 to 50,000 samples, each engine built by
+     ``SearchConfig.make_stream_engine``, in five arms: (a) the default
+     engine (``stream_chunk`` = 8192, ``gather="fused"``: kernels B and
+     A), its wall split by CUDA events around A and B; (b) the raw form
+     (``stream_chunk=None``, 100,000-sample arrivals); (b2) the raw form on
+     (a)'s arrivals, which times the fixed ingest shape; (c)
+     ``gather="slab"`` (kernels B and D); (d) re-admission: a ring of
+     65,536 samples and a 16-sample NaN burst mid-stream, ``correct``d
+     after the arrival that completes its last window, ``save_state``
+     (which rescores the 1,039 windows in one launch of kernel D: kernel D
+     on that slab is held against its plain version under the carried
+     incumbents and under ``ub = BIG``, and the flush's incumbents against
+     ``rescore_windows`` on the CPU), and ``restore_state`` into a fresh
+     engine that ingests the rest. Each
+     arm's ``best_start`` must be the offline host rounds', or a near tie:
+     both windows' DTW in float64 (float64 window stats) within ``TOL_A``;
+     ``best_dist`` within ``TOL_A``; no quarantined window left; kernel
+     A's (or D's) launches the sum of the ingests' rounds, kernel B's one
+     a query tile per ingest that completes a window. Each arm prints its
+     wall, ingests, rounds, lanes and the latency of an arrival at the
+     median and the 99th percentile;
   5. the same search at N = 50,000, l = 256, w = 25, Q = 4 on the card and
      with ``device="cpu"``, for both drivers and both EA variants;
      then the paper's four suites (``full``, ``pruned``, ``eapruned``,
@@ -60,6 +82,12 @@ Drives ``repro_torch`` (never JAX, never ``repro``) on ``cuda:0``:
      the runs of one DP the same ``best_start``, rows and cells in the
      order ``eapruned <= pruned <= full``; and ``full`` and
      ``pruned`` on the card against the CPU at N = 20,000, l = 256, w = 25;
+     then a stream on the card against the CPU (N = 20,000, l = 1024,
+     w = 102, ``STREAM_CROSS_Q`` queries, ``stream_chunk`` = 8192: the
+     same ``best_start`` and quarantine counts, distances within
+     ``TOL_CROSS``), and ``ea_search_round`` and the full-row
+     ``ea_pruned_dtw`` (the paper's example among them) on the card
+     against the CPU;
   6. per-kernel times with CUDA events beside the plain versions' times and
      the bounds (C and E: the whole cold sweep of phase 3), kernel B's share
      of its bound, time per term and registers, kernel A's time per DP
@@ -67,8 +95,10 @@ Drives ``repro_torch`` (never JAX, never ``repro``) on ``cuda:0``:
      share of its bound, the lanes C and E keep in
      flight and run per query, and the host-rounds wall per round less
      kernel A's time;
-  7. a ``{"kernels": [...]}`` line; the last line is
-     ``{"ok": true, "device": {...}}``.
+  7. a ``{"stream": {...}}`` line of the streaming arms' numbers, a
+     ``{"kernels": [...]}`` line (``launches`` on the offline path that runs
+     each kernel, ``stream_launches`` in streaming arm (a) for A and B and
+     arm (c) for D); the last line is ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 It exits non-zero at once when ``torch.cuda.is_available()`` is false, and
@@ -76,11 +106,13 @@ fails on import when ``src/repro_torch`` is not beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -96,6 +128,21 @@ CROSS = dict(ref_len=50_000, query_len=256, window=25, n_queries=4)
 BASELINE_N = 20_000
 BASELINE_CROSS = dict(ref_len=20_000, query_len=256, window=25)
 KERNEL_A_ROUNDS = 3
+# Streaming (phase 4 stream): arrivals of 1 to STREAM_MAX_ARRIVAL samples
+# drawn from STREAM_SEED; the raw-form arm takes STREAM_RAW_CHUNK-sample
+# arrivals; the re-admission arm keeps a ring of STREAM_RING samples and
+# plants a STREAM_BURST-sample NaN burst mid-stream. The card-against-CPU
+# stream (phase 5) runs on a reference cut to BASELINE_N with the first
+# STREAM_CROSS_Q queries and arrivals of 1 to STREAM_CROSS_ARRIVAL: the
+# CPU's plain kernel A takes about a second a round at l = 1024 (80 s for
+# the 73 rounds of 4 queries on the H100's host), so it runs 2 queries.
+STREAM_SEED = 16
+STREAM_MAX_ARRIVAL = 50_000
+STREAM_RAW_CHUNK = 100_000
+STREAM_RING = 65_536
+STREAM_BURST = 16
+STREAM_CROSS_Q = 2
+STREAM_CROSS_ARRIVAL = 8_000
 # Phase 3 holds the counter variants of kernels A and D against the plain
 # version run on each round's lanes followed by COUNT_COPIES copies of them
 # under ub = BIG (which never abandon): 65 x 2,048 = 133,120 rows, more
@@ -851,37 +898,56 @@ def phase_end_to_end(torch, cfg, ref, queries, rounds: str,
     return {"wall_s": wall, "launches": launches, "res": res}
 
 
-def host_loop_split(torch, cfg, ref, queries) -> dict:
-    """The host-rounds search once more, with CUDA events around every
-    launch of kernel A (``core.batch`` sees a stand-in for ``kernels.ops``
-    that records them): kernel A's time summed over the search, and what
-    the rest of the wall costs per round. Not a counted run."""
+@contextlib.contextmanager
+def kernel_events(torch, names):
+    """Within the block, ``core.batch`` (kernels A and D) and
+    ``search.cascade`` (kernel B) see a stand-in for ``kernels.ops`` that
+    records CUDA events around every launch of the wrappers in ``names``
+    (the wrappers still count their launches). Yields ``{name: [(start,
+    end), ...]}``; read it after a device sync."""
     from repro_torch.core import batch
     from repro_torch.kernels import ops
+    from repro_torch.search import cascade
 
-    events = []
-    kernel_a = ops.dtw_ea_multi_fused
+    events = {name: [] for name in names}
 
-    class TimedOps:
-        def __getattr__(self, name):
-            return getattr(ops, name)
+    def timed(name):
+        wrapper = getattr(ops, name)
 
-        @staticmethod
-        def dtw_ea_multi_fused(*args, **kwargs):
+        def launch(*args, **kwargs):
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record()
-            out = kernel_a(*args, **kwargs)
+            out = wrapper(*args, **kwargs)
             ev[1].record()
-            events.append(ev)
+            events[name].append(ev)
             return out
+        return launch
 
-    batch.ops = TimedOps()
+    stand_in = types.SimpleNamespace(**{
+        k: getattr(ops, k) for k in dir(ops) if not k.startswith("__")})
+    for name in names:
+        setattr(stand_in, name, timed(name))
+    batch.ops = cascade.ops = stand_in
     try:
-        _, wall, _ = counted_search(torch, ref, queries, cfg, rounds="host")
+        yield events
     finally:
-        batch.ops = ops
-    a_ms = sum(s.elapsed_time(e) for s, e in events)
+        batch.ops = cascade.ops = ops
+
+
+def events_ms(evs) -> float:
+    return sum(s.elapsed_time(e) for s, e in evs)
+
+
+def host_loop_split(torch, cfg, ref, queries) -> dict:
+    """The host-rounds search once more, with CUDA events around every
+    launch of kernel A (``kernel_events``): kernel A's time summed over the
+    search, and what the rest of the wall costs per round. Not a counted
+    run."""
+    with kernel_events(torch, ["dtw_ea_multi_fused"]) as ev:
+        _, wall, _ = counted_search(torch, ref, queries, cfg, rounds="host")
+    events = ev["dtw_ea_multi_fused"]
+    a_ms = events_ms(events)
     launches = len(events)
     loop_ms = wall * 1e3 - a_ms
     say(f"[4 host loop] host rounds with events around kernel A: "
@@ -959,6 +1025,425 @@ def phase_slab_arms(torch, cfg, ref, queries, host: dict, sweep: dict) -> dict:
     out.update(dtw_ea_persistent=s_launches["dtw_ea_persistent"],
                sweep_slab_wall_s=s_wall, sweep_slab_peak_gb=peak)
     return out
+
+
+def arrival_sizes(n: int, most: int, seed: int) -> list[int]:
+    """Seeded ragged arrival sizes of 1 to ``most`` samples covering ``n``
+    (the last one is the remainder)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sizes, total = [], 0
+    while total < n:
+        sizes.append(min(int(rng.integers(1, most + 1)), n - total))
+        total += sizes[-1]
+    return sizes
+
+
+def recording(results: list):
+    """An executor factory for ``StreamSearchEngine``: the default
+    executor, with each ingest's ``IngestResult`` kept in ``results`` (no
+    host sync)."""
+    def factory(default):
+        class Recorder:
+            def run_ingest(self, *args, **kwargs):
+                out = default.run_ingest(*args, **kwargs)
+                results.append(out[1])
+                return out
+        return Recorder()
+    return factory
+
+
+def feed_stream(torch, eng, ref, sizes, start: int = 0,
+                after=None) -> dict:
+    """Feed ``ref[start:]`` to ``eng`` in ``sizes``; each arrival's latency
+    is host time around ``ingest`` to a device sync. ``after(eng, n_seen)``
+    runs after each arrival (outside the timing) and may stop the feed by
+    returning True. Returns the wall, the latencies and where it stopped."""
+    lat, i = [], start
+    t0 = time.perf_counter()
+    for c in sizes:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.ingest(ref[i:i + c])
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t)
+        i += c
+        if after is not None and after(eng, i):
+            break
+    return {"wall_s": time.perf_counter() - t0, "lat": lat, "stop": i}
+
+
+def pct(xs, q: float) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(xs) * 1e3, q))
+
+
+def near_tie(torch, ref, query, a: int, b: int, length: int,
+             window: int) -> tuple[float, float]:
+    """The DTW of ``query`` to windows ``a`` and ``b`` of ``ref`` in
+    float64, windows and query normalized in float64 (``core.dtw``)."""
+    from repro_torch.core.common import EPS
+    from repro_torch.core.dtw import dtw_batch
+
+    r = ref.to(torch.float64)
+    w = torch.stack([r[a:a + length], r[b:b + length]])
+    w = (w - w.mean(1, keepdim=True)) / w.std(
+        1, keepdim=True, correction=0).clamp_min(EPS)
+    q = query.to(torch.float64)
+    q = (q - q.mean()) / q.std(correction=0).clamp_min(EPS)
+    d = dtw_batch(q.expand(2, -1), w, window=window).cpu()
+    return float(d[0]), float(d[1])
+
+
+def check_stream_winners(torch, label, eng, offline, ref, queries, cfg,
+                         ties: dict) -> None:
+    """An arm's winners against the offline host rounds: each
+    ``best_start`` equal, or a near tie proven in float64 (both windows'
+    DTW within ``TOL_A``); ``best_dist`` within ``TOL_A``."""
+    bs, bd = eng.best()
+    got, want = bs.tolist(), offline.best_start.tolist()
+    rel = rel_err(bd, offline.best_dist)
+    say(f"  {label}: best_start {got}; equal to offline "
+        f"{got == want}; best_dist max rel err {rel:.3e} (tol {TOL_A})")
+    check(rel <= TOL_A, f"{label}: best_dist differs from offline")
+    for qi, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        dg, dw = near_tie(torch, ref, queries[qi], g, w, cfg.query_len,
+                          cfg.window)
+        gap = abs(dg / dw - 1)
+        say(f"  {label}: query {qi} window {g} (offline {w}): float64 DTW "
+            f"{dg!r} and {dw!r}, {gap:.3e} apart (tol {TOL_A})")
+        check(gap <= TOL_A, f"{label}: query {qi} found {g}, offline {w}, "
+              "and they are no near tie")
+        ties.setdefault(label, []).append(qi)
+
+
+def check_rescore(torch, eng, ref, first: int, count: int, best0, ub0,
+                  snap: dict) -> None:
+    """Arm (d)'s flush against its plain version. The ``count`` windows
+    from ``first`` (over the burst, clean) are the slab the flush
+    rescored: kernel D on it (with the cb slab) against the plain version,
+    under the carried incumbents ``ub0`` and under ``ub = BIG`` (every lane
+    finishes, so each distance is compared); and the flush's
+    ``(ub, best)`` in ``snap`` against ``rescore_windows`` on the CPU (the
+    plain kernel D) from ``(ub0, best0)``: ``best`` equal, ``ub`` within
+    ``TOL_A``. The launches here are comparisons and are not counted."""
+    from repro_torch.core.common import BIG
+    from repro_torch.core.lower_bounds import cascade_keogh_cumulative
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dtw_band import dtw_ea_plain
+    from repro_torch.search.streaming import rescore_windows
+    from repro_torch.search.znorm import znorm
+
+    l, window, nq = eng.length, eng.window, eng.n_queries
+    starts = torch.arange(first, first + count, device=ref.device)
+    wins = ref[starts[:, None] + torch.arange(l, device=ref.device)]
+    check(bool(torch.isfinite(wins).all()), "(d): a rescored window is "
+          "not finite")
+    cand = znorm(wins)[None].expand(nq, count, l).contiguous()
+    cb = cascade_keogh_cumulative(cand, eng.u[:, None, :],
+                                  eng.low[:, None, :]).contiguous()
+    bw = ops.resolve_band(window, l, l, eng.band_width)
+    for label, ub in (("carried ub", ub0[:, None].expand(nq, count)),
+                      ("ub = BIG", torch.full((nq, count), BIG,
+                                              device=ref.device))):
+        ub = ub.contiguous()
+        k = ops.dtw_ea_multi(eng.queries_n, cand, ub, window, cb=cb)
+        p = dtw_ea_plain(eng.queries_n, cand, ub, window, bw, cb=cb)
+        torch.cuda.synchronize()
+        compare_lanes(torch, k, p, ub, f"(d) the flush's slab ({nq}, "
+                      f"{count}, {l}) with cb, {label}")
+        if label == "ub = BIG":
+            check(bool(torch.isfinite(k).all()), "(d): a lane abandoned "
+                  "under ub = BIG")
+            say(f"  (d) nearest re-admitted window per query "
+                f"{k.min(1).values.tolist()} (carried ub {ub0.tolist()})")
+    ub_c, best_c = rescore_windows(
+        wins.cpu(), starts.cpu(), eng.queries_n.cpu(), eng.u.cpu(),
+        eng.low.cpu(), ub0.cpu(), best0.cpu(), window=window,
+        variant=eng.variant, band_width=eng.band_width, device="cpu")
+    got_b, got_ub = snap["best"].tolist(), torch.as_tensor(snap["ub"])
+    rel = rel_err(got_ub, ub_c)
+    say(f"  (d) the flush's best {got_b}, ub rel err {rel:.3e} against "
+        f"rescore_windows on the CPU (best {best_c.tolist()}; tol {TOL_A})")
+    check(got_b == best_c.tolist() and rel <= TOL_A,
+          "(d): the flush's incumbents differ from the plain rescore's")
+
+
+def phase_stream(torch, cfg, ref, queries, host: dict) -> dict:
+    """Streaming at the main path's shapes: arms (a)-(d) of the module
+    docstring, each against phase 4's offline host rounds."""
+    from repro_torch.kernels import ops
+
+    offline = host["res"]
+    n, l = cfg.ref_len, cfg.query_len
+    tiles = len(ops.lb_query_tiles(cfg.n_queries, l))
+    sizes = arrival_sizes(n, STREAM_MAX_ARRIVAL, STREAM_SEED)
+    split = sum(c > cfg.stream_chunk for c in sizes)
+    padded = sum(c % cfg.stream_chunk != 0 for c in sizes)
+    say(f"[4 stream] StreamSearchEngine N={n} l={l} w={cfg.window} "
+        f"Q={cfg.n_queries} batch={cfg.batch}: {len(sizes)} arrivals of "
+        f"{min(sizes)}-{max(sizes)} samples (seed {STREAM_SEED}; {split} "
+        f"split into stream_chunk={cfg.stream_chunk} pieces, {padded} with a "
+        f"padded piece, the last {sizes[-1]})")
+    ties, arms, by_arm = {}, {}, {}
+
+    def engine(results, **kw):
+        return cfg.make_stream_engine(queries, device=DEVICE,
+                                      executor=recording(results), **kw)
+
+    def zero():
+        for name in KERNELS:
+            getattr(ops, name).launches = 0
+
+    def counts():
+        return {k: getattr(ops, k).launches for k in KERNELS}
+
+    def report(label, eng, fed, results, launches):
+        rounds = sum(int(r.rounds.max()) for r in results)
+        say(f"  {label}: {fed['wall_s']:.3f} s wall; {len(fed['lat'])} "
+            f"arrivals, {len(results)} ingests; rounds {eng.rounds} "
+            f"(summed over ingests {rounds}), lanes {eng.lanes}; an arrival "
+            f"{pct(fed['lat'], 50):.2f} ms at the median, "
+            f"{pct(fed['lat'], 99):.2f} ms at the 99th percentile; launches "
+            f"{launches}; quarantined windows {eng.quarantined_windows}, "
+            f"samples {eng.quarantined_samples}")
+        arms[label] = {
+            "wall_s": fed["wall_s"], "arrivals": len(fed["lat"]),
+            "ingests": len(results), "rounds": eng.rounds, "lanes": eng.lanes,
+            "p50_ms": pct(fed["lat"], 50), "p99_ms": pct(fed["lat"], 99),
+            "launches": {k: v for k, v in launches.items() if v},
+        }
+        return rounds
+
+    # (a), (b), (c): the default engine, the raw form, slab gather; and the
+    # raw form on (a)'s arrivals, which times the fixed ingest shape
+    # (stream_chunk) against ingesting each arrival as it comes. Arm (a)
+    # runs with CUDA events around every launch of kernels A and B
+    # (kernel_events), which split its wall.
+    timed_a = ["dtw_ea_multi_fused", "lb_keogh_all_windows"]
+    for label, kw, arm_sizes, round_kernel in (
+        ("(a) default", {}, sizes, "dtw_ea_multi_fused"),
+        ("(b) raw", {"stream_chunk": None},
+         [min(STREAM_RAW_CHUNK, n - i) for i in range(0, n, STREAM_RAW_CHUNK)],
+         "dtw_ea_multi_fused"),
+        ("(b2) raw, (a)'s arrivals", {"stream_chunk": None}, sizes,
+         "dtw_ea_multi_fused"),
+        ("(c) slab", {"gather": "slab"}, sizes, "dtw_ea_multi"),
+    ):
+        results = []
+        eng = engine(results, **kw)
+        zero()
+        with kernel_events(torch, timed_a if label == "(a) default"
+                           else []) as ev:
+            fed = feed_stream(torch, eng, ref, arm_sizes)
+        launches = counts()
+        rounds = report(label, eng, fed, results, launches)
+        if label == "(a) default":
+            wall_ms = fed["wall_s"] * 1e3
+            a_ms, b_ms = (events_ms(ev[k]) for k in timed_a)
+            rest = wall_ms - a_ms - b_ms
+            say(f"  (a) with events around kernels A and B: A {a_ms:.1f} ms "
+                f"in all ({100 * a_ms / wall_ms:.1f}% of the wall, "
+                f"{a_ms / len(ev[timed_a[0]]):.4f} ms a launch), B "
+                f"{b_ms:.1f} ms ({100 * b_ms / wall_ms:.2f}%), the rest "
+                f"{rest:.1f} ms ({100 * rest / wall_ms:.1f}%, "
+                f"{rest / eng.rounds:.4f} ms a round)")
+            arms[label].update(a_ms=a_ms, b_ms=b_ms, rest_ms=rest)
+        by_arm[label] = launches
+        check(launches[round_kernel] == rounds == eng.rounds > 0,
+              f"{label}: launches of {round_kernel} are not the ingests' "
+              "rounds")
+        check(launches["lb_keogh_all_windows"] == tiles * len(results) > 0,
+              f"{label}: kernel B's launches are not one a tile an ingest")
+        check(all(v == 0 for k, v in launches.items()
+                  if k not in (round_kernel, "lb_keogh_all_windows")),
+              f"{label}: another DTW kernel was launched")
+        check(eng.quarantined_windows == int(offline.quarantined) == 0
+              and eng.quarantined_samples == 0,
+              f"{label}: quarantine counts differ from offline's (0)")
+        check_stream_winners(torch, label, eng, offline, ref, queries, cfg,
+                             ties)
+        arms[label]["best_start"] = eng.best()[0].tolist()
+        del eng, results
+    pa, pr = arms["(a) default"], arms["(b2) raw, (a)'s arrivals"]
+    say(f"  the same {len(sizes)} arrivals, padded to stream_chunk="
+        f"{cfg.stream_chunk} against raw: {pa['wall_s']:.3f} s against "
+        f"{pr['wall_s']:.3f} s wall ({pa['ingests']} against {pr['ingests']} "
+        f"ingests, {pa['rounds']} against {pr['rounds']} rounds); an arrival "
+        f"{pa['p50_ms']:.2f} against {pr['p50_ms']:.2f} ms at the median, "
+        f"{pa['p99_ms']:.2f} against {pr['p99_ms']:.2f} ms at the 99th "
+        "percentile (arm (a) with its kernel events)")
+
+    # (d): re-admission through correct, save_state and restore_state.
+    pos = n // 2
+    winners = set(arms["(a) default"]["best_start"])
+    while any(pos - l < s < pos + STREAM_BURST for s in winners):
+        pos += 5_000
+    dirty = ref.clone()
+    dirty[pos:pos + STREAM_BURST] = float("nan")
+    clean = ref[pos:pos + STREAM_BURST].cpu().numpy()
+    overlap = STREAM_BURST + l - 1
+    results = []
+    eng = engine(results, ring_capacity=STREAM_RING)
+    zero()
+    state = {}
+
+    def readmit(e, seen):
+        if seen < pos + overlap:  # the burst's last window is not complete
+            return False
+        state["before"] = (e.quarantined_windows, e.quarantined_samples)
+        state["queued"] = e.correct(pos, clean)
+        state["samples"] = e.quarantined_samples
+        return True
+
+    fed = feed_stream(torch, eng, dirty, sizes, after=readmit)
+    seen = fed["stop"]
+    before = counts()
+    best0, ub0 = (t.clone() for t in eng.best())
+    zero()
+    snap = eng.save_state()  # flushes the rescore: one launch of kernel D
+    flush = counts()
+    check_rescore(torch, eng, ref, pos - l + 1, overlap, best0, ub0, snap)
+    rest = sizes[len(fed["lat"]):]  # arm (a)'s pieces from here on
+    fresh_results = []
+    fresh = engine(fresh_results, ring_capacity=STREAM_RING)
+    fresh.restore_state(snap)
+    zero()
+    fed2 = feed_stream(torch, fresh, dirty, rest, start=seen)
+    after = counts()
+    say(f"  (d) re-admission: a {STREAM_BURST}-sample NaN burst at {pos}; "
+        f"correct() after {seen} samples: quarantined windows, samples "
+        f"before {state['before']}, {state['queued']} windows queued, "
+        f"samples after {state['samples']}; save_state launches {flush}; "
+        f"restored, then {len(rest)} more arrivals")
+    fed_all = {"wall_s": fed["wall_s"] + fed2["wall_s"],
+               "lat": fed["lat"] + fed2["lat"]}
+    launches = {k: before[k] + flush[k] + after[k] for k in KERNELS}
+    report("(d) re-admission", fresh, fed_all, results + fresh_results,
+           launches)
+    arms["(d) re-admission"].update(burst=pos, queued=state["queued"],
+                                    flush_launches=flush["dtw_ea_multi"])
+    check(state["before"] == (overlap, STREAM_BURST),
+          "(d): the burst's windows and samples were not all quarantined")
+    check(state["queued"] == overlap and state["samples"] == 0,
+          "(d): correct() did not queue every window over the burst")
+    check(flush["dtw_ea_multi"] == 1 and sum(flush.values()) == 1,
+          "(d): save_state must rescore in exactly one launch of kernel D")
+    check(fresh.quarantined_windows == 0 and fresh.quarantined_samples == 0
+          and fresh.readmitted_windows == overlap,
+          "(d): quarantine not cleared, or readmitted_windows is not the "
+          "number of windows over the burst")
+    check(before["dtw_ea_multi_fused"] + after["dtw_ea_multi_fused"]
+          == fresh.rounds, "(d): launches of kernel A are not the rounds")
+    check_stream_winners(torch, "(d) re-admission", fresh, offline, ref,
+                         queries, cfg, ties)
+    # Against arm (a), fed the same pieces: the same best_start, or a near
+    # tie (the burst's ingests difference zero-filled prefix sums).
+    got, want = fresh.best()[0].tolist(), arms["(a) default"]["best_start"]
+    say(f"  (d) against (a): best_start equal {got == want}")
+    for qi, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            dg, dw = near_tie(torch, ref, queries[qi], g, w, l, cfg.window)
+            check(abs(dg / dw - 1) <= TOL_A,
+                  f"(d): query {qi} found {g}, arm (a) {w}: no near tie")
+            ties.setdefault("(d) against (a)", []).append(qi)
+    arms["near_ties"] = ties
+    say(f"  queries that needed the near-tie rule: {ties or 'none'}")
+    return {"arms": arms, "a": by_arm["(a) default"], "c": by_arm["(c) slab"]}
+
+
+def phase_stream_cross(torch, cfg) -> None:
+    """A stream on the card against the same stream on the CPU, then
+    ``ea_search_round`` and the full-row ``ea_pruned_dtw``."""
+    import numpy as np
+
+    from repro_torch.core import ea_pruned_dtw, ea_search_round
+    from repro_torch.core.lower_bounds import (
+        cascade_keogh_cumulative,
+        envelope,
+    )
+    from repro_torch.data.synthetic import make_dataset, make_queries
+    from repro_torch.search.znorm import znorm
+    from repro_torch.serve import StreamSearchEngine
+
+    ref = make_dataset(DATASET, BASELINE_N, seed=0).astype(np.float32)
+    qs = make_queries(DATASET, cfg.n_queries, cfg.query_len, seed=1)
+    qs = qs[:STREAM_CROSS_Q].astype(np.float32)
+    sizes = arrival_sizes(BASELINE_N, STREAM_CROSS_ARRIVAL, STREAM_SEED)
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        t0 = time.perf_counter()
+        eng = StreamSearchEngine(qs, cfg.query_len, cfg.window,
+                                 batch=cfg.batch,
+                                 stream_chunk=cfg.stream_chunk, device=dev)
+        i = 0
+        for c in sizes:
+            eng.ingest(ref[i:i + c])
+            i += c
+        bs, bd = eng.best()
+        out[dev] = (bs.cpu(), bd.cpu(), eng.quarantined_windows, eng.rounds,
+                    time.perf_counter() - t0)
+    g, h = out[DEVICE], out["cpu"]
+    rel = rel_err(g[1], h[1])
+    say(f"[5 stream cross-check] N={BASELINE_N} l={cfg.query_len} "
+        f"Q={STREAM_CROSS_Q} stream_chunk={cfg.stream_chunk}, {len(sizes)} "
+        f"arrivals: card {g[4]:.2f} s, cpu {h[4]:.2f} s; best_start "
+        f"{g[0].tolist()} (cpu {h[0].tolist()}); rounds {g[3]} ({h[3]}); "
+        f"best_dist max rel err {rel:.3e} (tol {TOL_CROSS})")
+    check(g[0].tolist() == h[0].tolist(),
+          "stream: best_start differs between card and CPU")
+    check(g[2] == h[2], "stream: quarantine counts differ")
+    check(rel <= TOL_CROSS, "stream: distances differ")
+
+    # ea_search_round: one slab round (kernel D) and its fold, at l = 1024
+    # on the reference's first 256 windows.
+    l, w = cfg.query_len, cfg.window
+    wins = torch.as_tensor(ref).unfold(0, l, 1)[:256].contiguous()
+    cand = znorm(wins)
+    q = znorm(torch.as_tensor(qs[0]))
+    u, low = envelope(q, w)
+    cb = cascade_keogh_cumulative(cand, u, low)
+    idx = torch.arange(256)
+    cold = ea_search_round(q, cand, 1e30, -1, idx, w, cb=cb)[0]
+    res = {}
+    for dev in (DEVICE, "cpu"):  # cold, and an ub that most lanes exceed
+        res[dev] = [ea_search_round(q.to(dev), cand.to(dev), ub, -1,
+                                    idx.to(dev), w, cb=cb.to(dev))
+                    for ub in (1e30, float(cold) * 1.05)]
+    for (gu, gb), (hu, hb) in zip(res[DEVICE], res["cpu"]):
+        r = abs(float(gu) / float(hu) - 1)
+        say(f"  ea_search_round: card ({float(gu)!r}, {int(gb)}), cpu "
+            f"({float(hu)!r}, {int(hb)}), rel err {r:.3e} (tol {TOL_CROSS})")
+        check(int(gb) == int(hb) and r <= TOL_CROSS,
+              "ea_search_round differs between card and CPU")
+    # The full-row ea_pruned_dtw: the paper's example, then two windows at
+    # l = 1024 with and without the window, above and below their DTW.
+    s_p = torch.tensor([3, 1, 4, 4, 1, 1], dtype=torch.float64)
+    t_p = torch.tensor([1, 3, 2, 1, 2, 2], dtype=torch.float64)
+    d9 = float(ea_pruned_dtw(s_p.to(DEVICE), t_p.to(DEVICE), 9.0))
+    d6, info6 = ea_pruned_dtw(s_p.to(DEVICE), t_p.to(DEVICE), 6.0,
+                              with_info=True)
+    say(f"  ea_pruned_dtw, the paper's example on the card: ub 9 -> {d9}, "
+        f"ub 6 -> {float(d6)} after {int(info6.rows)} rows")
+    check(d9 == 9.0 and float(d6) == float("inf") and int(info6.rows) == 5,
+          "ea_pruned_dtw: the paper's example")
+    a, b = cand[0], cand[37]
+    for win in (w, None):
+        full = float(ea_pruned_dtw(a, b, 1e30, window=win))
+        for ub in (full * 1.01, full * 0.99):
+            gd, gi = ea_pruned_dtw(a.to(DEVICE), b.to(DEVICE), ub,
+                                   window=win, with_info=True)
+            hd, hi = ea_pruned_dtw(a, b, ub, window=win, with_info=True)
+            same = (float(gd) == float(hd) == float("inf")
+                    or abs(float(gd) / float(hd) - 1) <= TOL_CROSS)
+            say(f"  ea_pruned_dtw l={l} window={win} ub={ub:.4f}: card "
+                f"{float(gd)!r} ({int(gi.rows)} rows, {int(gi.cells)} cells)"
+                f", cpu {float(hd)!r} ({int(hi.rows)}, {int(hi.cells)})")
+            check(same, "ea_pruned_dtw differs between card and CPU")
 
 
 def phase_cross_check(torch) -> None:
@@ -1309,8 +1794,11 @@ def main() -> int:
                   queries, "persistent", host)
     slab = timed("phase 4 slab arms", phase_slab_arms, torch, cfg, ref,
                  queries, host, sweep)
+    stream = timed("phase 4 stream", phase_stream, torch, cfg, ref, queries,
+                   host)
     timed("phase 5", phase_cross_check, torch)
     timed("phase 5 baselines", phase_baselines, torch, cfg)
+    timed("phase 5 stream cross-check", phase_stream_cross, torch, cfg)
     kernels = timed("phase 6", phase_times, torch, kb, ka, kd, kce, loop)
     # Launches on the path that runs each kernel: host rounds (A, B), the
     # persistent sweep (C), the slab arms (D, E).
@@ -1318,9 +1806,13 @@ def main() -> int:
     launches["dtw_ea_persistent_fused"] = sweep["launches"]["dtw_ea_persistent_fused"]
     launches["dtw_ea_multi"] = slab["dtw_ea_multi"]
     launches["dtw_ea_persistent"] = slab["dtw_ea_persistent"]
+    # Streaming launches: arm (a) for A and B, arm (c) for D.
+    stream_launches = dict(stream["a"], dtw_ea_multi=stream["c"]["dtw_ea_multi"])
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        k["stream_launches"] = stream_launches[k["name"]]
     say(f"total {time.perf_counter() - t_all:.2f} s")
+    say(json.dumps({"stream": stream["arms"]}))
     say(json.dumps({"kernels": kernels}))
     say(card["smi"])
     say(json.dumps({"ok": True, "device": {

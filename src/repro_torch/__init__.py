@@ -2,16 +2,20 @@
 
 A second package beside ``repro`` (the JAX reference, which stays as it
 is). It imports ``torch`` and ``numpy`` only and mirrors ``repro``'s
-layout (``core/``, ``search/``, ``kernels/``, ``configs/``, ``data/``,
-``launch/``), so each module's counterpart is found at the same path.
+layout (``core/``, ``search/``, ``serve/``, ``kernels/``, ``configs/``,
+``data/``, ``launch/``), so each module's counterpart is found at the same path.
 
-This slice covers the main path: offline subsequence search with
-EAPrunedDTW under the default plan (``variant="eapruned"`` or
-``"eapruned_nolb"``, ``rounds="host"``, ``gather="fused"``), reached through
-``search.multi.multi_query_search`` and
-``search.subsequence.subsequence_search``. Its two kernels are CUDA C++ for
-``sm_90a`` (``kernels/csrc``); on CPU tensors each kernel's wrapper runs
-the kernel's plain PyTorch version instead.
+It covers offline subsequence search (``search.multi.multi_query_search``,
+``search.subsequence.subsequence_search``) under both round drivers
+(``rounds="host"`` or ``"persistent"``) and both gather modes, with the
+paper's counters and its four suites (``eapruned``, ``eapruned_nolb``,
+``full``, ``pruned``); streaming search (``serve.StreamSearchEngine``,
+``search.streaming``); and the core API (``core``). The five kernels
+(A-E, one for each ``pl.pallas_call`` of ``repro``) are CUDA C++ for
+``sm_90a`` (``kernels/csrc``); on CPU tensors each kernel's wrapper runs the
+kernel's plain PyTorch version instead. The host layer (executors,
+supervision), sharded search and the LM scaffolding are not ported yet
+(ROADMAP.md Queue 1).
 
 Entry points take a ``device`` argument and run on CUDA unless the caller
 passes ``device="cpu"``; with no device given and no CUDA present they

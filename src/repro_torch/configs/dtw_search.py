@@ -8,8 +8,15 @@ See ``repro``'s config for what each knob does; ``backend`` has no
 counterpart (the port dispatches by device). The Pallas tiling knobs
 ``rows_per_step`` and ``row_block`` change nothing here, so ``make_plan``'s
 defaults supply them; ``block_k`` sets the granularity of the persistent
-sweep's ``blocks`` work metric. The streaming, resilience and hedging knobs
-belong to modules not ported yet.
+sweep's ``blocks`` work metric. The streaming knobs are ``repro``'s, and
+``make_stream_engine`` hands them to ``serve.stream.StreamSearchEngine``:
+``stream_chunk``, the samples an ingest takes (the engine's fixed ingest
+shape: bigger arrivals are split and every piece padded to it),
+``ring_capacity``, the monitoring ring over the last W raw samples
+(``None``: no history), and ``debug_checks``, the per-ingest NaN tripwire
+on the incumbents (``False`` still defers to ``$REPRO_DEBUG_CHECKS``).
+The resilience and hedging knobs belong to modules not ported yet
+(ROADMAP.md Queue 1).
 """
 from dataclasses import dataclass
 
@@ -29,7 +36,10 @@ class SearchConfig:
     slab_budget: int | None = None   # byte cap on host-side slabs (§2.10)
     n_queries: int = 8               # multi-query workload size
     warm_start: int = 0              # incumbent-seeding prepass
+    stream_chunk: int = 8192         # samples per streaming ingest (serve.stream)
+    ring_capacity: int | None = None  # monitoring ring over last W samples
     quarantine: bool = True          # non-finite window quarantine (§2.6)
+    debug_checks: bool = False       # incumbent NaN tripwire (debug only)
 
     @property
     def window(self) -> int:
@@ -55,6 +65,27 @@ class SearchConfig:
         )
         kw.update(overrides)
         return make_plan(**kw)
+
+    def make_stream_engine(self, queries, **overrides):
+        """A ``StreamSearchEngine`` over ``queries`` with this config's
+        search and streaming knobs; ``overrides`` replace individual
+        engine arguments (``device``, ``executor``, ``ub_init``, ...)."""
+        from repro_torch.serve.stream import StreamSearchEngine
+
+        kw = dict(
+            variant=self.variant,
+            batch=self.batch,
+            band_width=self.band_width,
+            block_k=self.block_k,
+            gather=self.gather,
+            slab_budget=self.slab_budget,
+            quarantine=self.quarantine,
+            stream_chunk=self.stream_chunk,
+            ring_capacity=self.ring_capacity,
+            debug_checks=self.debug_checks or None,
+        )
+        kw.update(overrides)
+        return StreamSearchEngine(queries, self.query_len, self.window, **kw)
 
 
 CONFIG = SearchConfig()

@@ -12,7 +12,8 @@ DESIGN.md §2.10) and slab (a pre-gathered ``(Q, K, m)`` window slab, the
 
   * ``ea_pruned_dtw_multi_batch_fused`` — round, fused (kernel A);
   * ``ea_pruned_dtw_batch`` / ``ea_pruned_dtw_multi_batch`` — round, slab
-    (kernel D);
+    (kernel D); ``ea_search_round`` — one slab round plus the strict
+    argmin fold into a scalar incumbent;
   * ``ea_pruned_dtw_persistent_fused`` — sweep, fused (kernel C);
   * ``ea_pruned_dtw_persistent`` — sweep, slab (kernel E);
   * ``block_sweep`` — the baselines' persistent sweep, one query over a
@@ -139,8 +140,8 @@ def check_batch_args(query, candidates, window, cb=None, multi=False):
             )
     elif qnd != 1:
         raise NotImplementedError(
-            "multivariate queries have no batch path in the port: repro's "
-            "search cannot use one (ROADMAP.md Queue 1 item 6, Queue 3)"
+            "multivariate queries have no batch path in the port, by design: "
+            "repro's search cannot use one (ROADMAP.md Queue 1, Queue 3)"
         )
     elif cnd != 2:
         raise guards.SearchInputError(
@@ -175,7 +176,7 @@ def ea_pruned_dtw_batch(
 
     Args:
       query: ``(m,)`` z-normalized query (a multivariate one raises
-        ``NotImplementedError``, ROADMAP.md Queue 1 item 6).
+        ``NotImplementedError``: not ported by design, ROADMAP.md Queue 1).
       candidates: ``(K, m)`` normalized windows.
       ub: scalar upper bound shared by every lane, or ``(K,)`` per lane.
       window: Sakoe-Chiba window.
@@ -194,6 +195,43 @@ def ea_pruned_dtw_batch(
         cb=None if cb is None else _f32(cb), band_width=band_width,
         block_k=block_k, row_block=row_block, with_info=with_info,
     ), with_info)
+
+
+def ea_search_round(
+    query: torch.Tensor,
+    candidates: torch.Tensor,
+    ub,
+    best_idx,
+    cand_idx: torch.Tensor,
+    window: int,
+    band_width: int | None = None,
+    cb: torch.Tensor | None = None,
+    rows_per_step: int = 1,
+    block_k: int = 8,
+    row_block: int = 128,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One search round: ``ea_pruned_dtw_batch`` (kernel D on the card)
+    plus the incumbent update.
+
+    ``cand_idx`` ``(K,)`` carries each candidate's global index, for the
+    argmin bookkeeping across rounds. Returns the updated ``(ub,
+    best_idx)`` as 0-d tensors on the candidates' device. Ties keep the
+    incumbent (strict improvement only, the paper's rule for early
+    abandoning); ``torch.argmin`` takes the first lane among equal minima,
+    as ``jnp.argmin`` does.
+    """
+    dev = candidates.device
+    ub = torch.as_tensor(ub, dtype=torch.float32, device=dev)
+    best_idx = torch.as_tensor(best_idx, device=dev)
+    d = ea_pruned_dtw_batch(
+        query, candidates, ub, window, band_width, cb,
+        rows_per_step=rows_per_step, block_k=block_k, row_block=row_block,
+    )
+    k = torch.argmin(d)
+    improved = d[k] < ub
+    new_best = torch.as_tensor(cand_idx, device=dev)[k].to(best_idx.dtype)
+    return (torch.where(improved, d[k], ub),
+            torch.where(improved, new_best, best_idx))
 
 
 def ea_pruned_dtw_multi_batch(

@@ -1,16 +1,25 @@
-"""Banded EAPrunedDTW, batched over lanes — the port's DP oracle.
+"""EAPrunedDTW (Herrmann & Webb's Algorithm 3), port of
+``repro/core/ea_pruned_dtw.py``. Both forms make the paper's pruning
+decisions at row granularity:
 
-Port of ``repro/core/ea_pruned_dtw.py::ea_pruned_dtw_banded`` (Herrmann &
-Webb's Algorithm 3, banded). ``repro`` runs one lane in a
-``lax.while_loop`` and vmaps it; here all lanes step through the rows
-together as tensors, each lane masked once it has abandoned, and the loop
-ends when every lane has.
+``ea_pruned_dtw`` — one pair, full-width rows: each row is one vector step
+    (the closed-form min-plus scan of ``common.row_scan``), the band pointer
+    ``next_start`` comes from a masked ``argmax``, and the loop ends on the
+    border collision (early abandon). ``repro`` runs it as a
+    ``lax.while_loop`` outside any Pallas kernel; here it is a Python loop of
+    PyTorch ops on the device of its inputs that reads one host scalar a row
+    (whether any cell stayed under the threshold). Univariate or ``(n,
+    dims)`` series, ``n != m`` without a window, ``cb`` and ``EAInfo``.
 
-Each lane keeps its own band offset (its ``next_start``), exactly as the
-``repro`` function does; the round kernel and its plain version
-(``kernels/dtw_band.py``) use the lane-uniform window-following offset
-instead. Both compute every admissible cell, so they agree to the
-O(1)-ulp rounding of the prefix-scan reformulation (DESIGN.md §2.1).
+``ea_pruned_dtw_banded`` — the port's DP oracle for the batched rounds:
+    ``repro`` runs one lane in a ``lax.while_loop`` and vmaps it; here all
+    lanes step through the rows together as tensors, each lane masked once
+    it has abandoned, and the loop ends when every lane has. Each lane keeps
+    its own band offset (its ``next_start``), exactly as the ``repro``
+    function does; the round kernel and its plain version
+    (``kernels/dtw_band.py``) use the lane-uniform window-following offset
+    instead. Both compute every admissible cell, so they agree to the
+    O(1)-ulp rounding of the prefix-scan reformulation (DESIGN.md §2.1).
 
 Correctness contract (the paper's): the result equals exact DTW whenever
 exact DTW <= ub, and is ``+inf`` whenever exact DTW > ub.
@@ -22,6 +31,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.common import BIG, default_band_width, row_scan, to_inf
+from repro_torch.core.dtw import cost_row
 
 
 class EAInfo(NamedTuple):
@@ -29,6 +39,107 @@ class EAInfo(NamedTuple):
 
     rows: torch.Tensor   # rows issued before abandon/completion
     cells: torch.Tensor  # admissible cells across issued rows (band area)
+
+
+def _row_threshold(ub: torch.Tensor, cb: torch.Tensor | None, i: int,
+                   window: int | None, m: int) -> torch.Tensor:
+    """UCR-suite upper-bound tightening: any path cell in row ``i`` sits in
+    columns <= i + w, so the remaining columns add at least
+    ``cb[i + w + 1]`` (the cumulative LB_Keogh suffix); the row threshold
+    is ``ub - cb[i + w + 1]``, and ``ub`` past the last column."""
+    if cb is None:
+        return ub
+    w = 0 if window is None else window
+    if i + w + 1 <= m - 1:
+        return ub - cb[i + w + 1]
+    return ub
+
+
+def ea_pruned_dtw(
+    s,
+    t,
+    ub,
+    window: int | None = None,
+    with_info: bool = False,
+    cb=None,
+):
+    """EAPrunedDTW of one pair, full-width rows (see the module docstring).
+
+    Args:
+      s: ``(n,)`` or ``(n, dims)`` "line" series (rows); a tensor or an
+        array.
+      t: ``(m,)`` or ``(m, dims)`` series (columns).
+      ub: scalar upper bound; the computation abandons once the distance
+        provably exceeds it.
+      window: optional Sakoe-Chiba window (requires ``n == m``; a window of
+        at least ``m`` is none).
+      with_info: also return ``EAInfo`` counters (0-d int64 tensors).
+      cb: optional ``(m,)`` cumulative LB_Keogh suffix sums, tightening the
+        abandon threshold per row.
+
+    Runs on the device of ``t`` in the common floating dtype of ``s`` and
+    ``t`` (float32 at least). Returns a 0-d distance (``+inf`` when
+    abandoned), or ``(distance, EAInfo)``.
+    """
+    s = torch.as_tensor(s)
+    t = torch.as_tensor(t)
+    n, m = s.shape[0], t.shape[0]
+    if window is not None and n != m:
+        raise ValueError("windowed EAPrunedDTW requires equal lengths")
+    if window is not None and window >= m:
+        window = None
+    dtype = torch.promote_types(torch.promote_types(s.dtype, t.dtype),
+                                torch.float32)
+    dev = t.device
+    s, t = s.to(device=dev, dtype=dtype), t.to(dtype)
+    ub = torch.as_tensor(ub, dtype=dtype, device=dev)
+    if cb is not None:
+        cb = torch.as_tensor(cb, device=dev)
+    cols = torch.arange(m, device=dev)
+    big = torch.full((m,), BIG, dtype=dtype, device=dev)
+    border = big[:1]
+
+    prev = torch.full((m + 1,), BIG, dtype=dtype, device=dev)
+    prev[0] = 0.0
+    next_start = torch.zeros((), dtype=torch.long, device=dev)
+    ok_last = torch.zeros((), dtype=torch.bool, device=dev)
+    abandoned = False
+    rows = 0
+    cells = torch.zeros((), dtype=torch.int64, device=dev)
+    for i in range(n):
+        # Window clipping acts like permanent discard points on the left.
+        if window is None:
+            ns = next_start
+            exists = cols >= ns
+        else:
+            ns = torch.clamp_min(next_start, i - window)
+            exists = (cols >= ns) & ((cols - i).abs() <= window)
+        c = cost_row(s[i][None], t[None])[0]  # repro's _cost_row
+        d = c + torch.minimum(prev[1:], prev[:-1])
+        d = torch.where(exists, d, big)
+        curr = torch.clamp_max(row_scan(d, c), BIG)
+        curr = torch.where(exists, curr, big)
+        le = (curr <= _row_threshold(ub, cb, i, window, m)) & exists
+        rows += 1
+        cells = cells + exists.sum()
+        if not bool(le.any()):  # the border collision: abandon
+            abandoned = True
+            break
+        # next_start' = first column <= thr (the discard-point prefix rule).
+        next_start = le.to(torch.int8).argmax()
+        prev = torch.cat([border, curr])
+        ok_last = le[m - 1]
+    # The paper's final check: the last row's last column must have been
+    # <= ub (pruning_point > l_co), otherwise the result is proven > ub.
+    if abandoned or not bool(ok_last):
+        result = torch.full((), float("inf"), dtype=dtype, device=dev)
+    else:
+        result = to_inf(prev[m])
+    if with_info:
+        return result, EAInfo(
+            rows=torch.tensor(rows, dtype=torch.int64, device=dev),
+            cells=cells)
+    return result
 
 
 def ea_pruned_dtw_banded(

@@ -7,16 +7,25 @@ Same exception taxonomy as ``repro``:
 ``NonFiniteInputError`` — a query-side array holds NaN/Inf. Reference-side
                           non-finites are quarantined, not rejected.
 ``StreamStateError``    — a streaming call is inconsistent with carried
-                          state; subclasses ``RuntimeError``. Streaming is
-                          not ported yet; the class keeps the taxonomy whole.
+                          state (chunk bigger than the fixed ingest shape,
+                          tail overflow, a mismatched checkpoint); carries
+                          ``n_seen`` / ``chunk_index``; subclasses
+                          ``RuntimeError``.
 
 PyTorch runs eagerly, so every check runs on concrete values (``repro``'s
-tracer-skipping has no counterpart here).
+tracer-skipping has no counterpart here). ``repro``'s ``checked_call``
+(checkify) has none either; the streaming engine's ``debug_checks`` opt-in
+(or ``$REPRO_DEBUG_CHECKS``, :func:`debug_checks_enabled`) checks after every
+ingest that no NaN reached the carried incumbents.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
+
+DEBUG_ENV_VAR = "REPRO_DEBUG_CHECKS"
 
 
 class SearchInputError(ValueError):
@@ -108,3 +117,12 @@ def ensure_knobs(
     ):
         if val is not None and int(val) < 1:
             raise SearchInputError(f"{knob} must be >= 1, got {val}")
+
+
+def debug_checks_enabled(flag: bool | None = None) -> bool:
+    """Resolve the debug-checks opt-in: explicit flag, else env var."""
+    if flag is not None:
+        return bool(flag)
+    return os.environ.get(DEBUG_ENV_VAR, "").strip().lower() in (
+        "1", "true", "yes", "on"
+    )

@@ -40,6 +40,12 @@ def lb_keogh(c: torch.Tensor, u: torch.Tensor, low: torch.Tensor) -> torch.Tenso
     return torch.sum(_lb_keogh_terms(c, u, low), dim=-1)
 
 
+def lb_keogh_pair(q: torch.Tensor, c: torch.Tensor, window: int) -> torch.Tensor:
+    """LB_Keogh(Q, C) building the envelope on the fly (pairwise form)."""
+    u, low = envelope(q, window)
+    return lb_keogh(c, u, low)
+
+
 def lb_kim_fl(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """Simplified LB_Kim on z-normalized series (UCR suite form): first +
     last aligned point costs. Batched over leading dims of ``c``."""

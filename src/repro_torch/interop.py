@@ -7,6 +7,12 @@ arrays (``np.asarray`` of ``repro``'s arrays), into the port's tuple of
 the same name on a given device. A test can then feed both packages the
 same ``mu``, ``sigma``, ``qn``, ``u``, ``low`` and ``ub``, and hold a
 round of the port against ``repro`` apart from prefix-sum rounding.
+
+A stream's state crosses over through the engines' snapshots: a dict that
+``repro``'s ``StreamSearchEngine.save_state()`` returned (its keys, with
+``best`` and the counters in int32) goes as it is into
+``repro_torch.serve.StreamSearchEngine.restore_state``, which widens them
+to int64 and carries on the stream on its own device.
 """
 from __future__ import annotations
 

@@ -1,14 +1,17 @@
-"""The per-query incumbent store (port of ``repro/search/incumbents.py``).
+"""The per-query incumbent store and the quarantine ledger (port of
+``repro/search/incumbents.py``).
 
 Incumbent updates are *strict improvement only* (``d < ub``, never ``<=``):
 the first achiever of a distance keeps its start. ``fold_min`` takes the
 first lane at a round's minimum; ``torch.argmin`` returns the first index
-among ties, as ``jnp.argmin`` does.
+among ties, as ``jnp.argmin`` does. ``fold_np`` is the same rule on the
+host.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.common import BIG, DEAD_LANE_UB  # noqa: F401  (re-export)
@@ -56,6 +59,19 @@ def fold_min(
     ), improved
 
 
+def fold_np(ub: np.ndarray, best: np.ndarray, starts, dists):
+    """Host-side fold of achieved ``(start, dist)`` pairs.
+
+    Same strict-improvement rule as ``fold_min``; additionally requires a
+    real achieving start (``>= 0``): a bare bound with no achieving window
+    is never folded.
+    """
+    s = np.asarray(starts, np.int64)
+    d = np.asarray(dists, np.float64)
+    improved = np.logical_and(s >= 0, d < ub)
+    return np.where(improved, d, ub), np.where(improved, s, best)
+
+
 def merge_states(a: IncumbentState, b: IncumbentState) -> IncumbentState:
     """Merge two incumbent snapshots under strict improvement: ``b`` wins
     only where its bound is strictly tighter, so merging a duplicate is a
@@ -65,3 +81,57 @@ def merge_states(a: IncumbentState, b: IncumbentState) -> IncumbentState:
         ub=torch.where(take_b, b.ub, a.ub),
         best=torch.where(take_b, b.best, a.best),
     )
+
+
+class QuarantineLedger:
+    """One source of truth for the quarantine accounting (DESIGN.md §2.6).
+
+    ``windows`` / ``samples`` add up lazily as int64 tensors on the device
+    that counted them, so an ingest never syncs just to keep a counter;
+    ``readmitted`` is a host int (the re-admission queue lives on the
+    host). ``repro`` keeps the two counts in int32. The ``state_dict`` keys
+    are ``repro``'s (``quarantined``, ``bad_samples``, ``readmitted``), and
+    a snapshot without ``readmitted`` (older than re-admission) restores
+    with 0.
+    """
+
+    def __init__(self, device=None):
+        self.device = device
+        self.windows = torch.zeros((), dtype=torch.int64, device=device)
+        self.samples = torch.zeros((), dtype=torch.int64, device=device)
+        self.readmitted = 0
+
+    def _count(self, n) -> torch.Tensor:
+        return torch.as_tensor(n, device=self.device).to(torch.int64)
+
+    def note_windows(self, n) -> None:
+        """Count newly quarantined windows (a device scalar is fine)."""
+        self.windows = self.windows + self._count(n)
+
+    def note_samples(self, n) -> None:
+        """Count newly seen non-finite raw samples (a device scalar is
+        fine)."""
+        self.samples = self.samples + self._count(n)
+
+    def correct_samples(self, k: int) -> None:
+        """``k`` bad samples were patched with finite values."""
+        self.samples = self.samples - int(k)
+
+    def readmit(self, n: int) -> None:
+        """``n`` previously quarantined windows were rescored back in."""
+        n = int(n)
+        self.windows = self.windows - n
+        self.readmitted += n
+
+    def state_dict(self) -> dict:
+        return {
+            "quarantined": np.asarray(int(self.windows), np.int64),
+            "bad_samples": np.asarray(int(self.samples), np.int64),
+            "readmitted": np.asarray(self.readmitted, np.int64),
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        self.windows = self._count(int(np.asarray(state["quarantined"])))
+        self.samples = self._count(int(np.asarray(state["bad_samples"])))
+        # Older checkpoints predate re-admission.
+        self.readmitted = int(state.get("readmitted", 0))

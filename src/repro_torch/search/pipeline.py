@@ -1,10 +1,12 @@
 """The staged search pipeline: SearchPlan → prepare → cascade → execute.
 
-Port of ``repro/search/pipeline.py`` for offline search: the
+Port of ``repro/search/pipeline.py`` for offline and streaming search: the
 ``eapruned`` and ``eapruned_nolb`` variants under both round drivers and
 both gather modes, with the ``EAInfo`` counters on the host rounds
-(``with_info``), and the ``full`` / ``pruned`` baselines
-(``_baseline_search_impl``). Stages::
+(``with_info``), the ``full`` / ``pruned`` baselines
+(``_baseline_search_impl``), and one streaming ingest
+(``run_stream_ingest``: the same stages over one ingest's context, host
+rounds seeded with the carried incumbents). Stages::
 
     SearchPlan (make_plan: validated knobs)
         ├─ prepare_ref      window stats + §2.6 quarantine mask/sanitize
@@ -517,6 +519,27 @@ def _offline_search_impl(
     else:
         state, stats = run_host_rounds(plan, prep, pq, order, lb_sorted,
                                        state0, with_info=with_info)
+    return state, stats, prep.n_quar
+
+
+def run_stream_ingest(
+    plan: SearchPlan, ctx: torch.Tensor, valid: torch.Tensor | None,
+    pq: PreparedQueries, state0: IncumbentState, offset,
+) -> tuple[IncumbentState, SearchStats, torch.Tensor]:
+    """One ingest over the windows of ``ctx``: prepare → cascade → rounds.
+
+    ``valid`` masks which of the ``len(ctx) - length + 1`` window starts
+    really exist (the fixed-shape buffers mask their garbage prefix and
+    padding suffix; ``None``: all of them); ``offset`` is the stream coordinate of ``ctx[0]`` (a
+    Python int, negative at stream start in the fixed-shape form). The
+    carried incumbents ride in as ``state0`` and gate round 0 exactly like
+    a warm ``ub_init`` in the offline driver. Returns ``(IncumbentState,
+    SearchStats, n_quar)`` with ``best`` in stream coordinates.
+    """
+    prep = prepare_ref(plan, ctx, valid=valid)
+    order, lb_sorted = cascade(plan, prep, pq.qn)
+    state, stats = run_host_rounds(plan, prep, pq, order, lb_sorted, state0,
+                                   offset=offset)
     return state, stats, prep.n_quar
 
 

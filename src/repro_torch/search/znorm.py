@@ -1,5 +1,6 @@
 """Z-normalization of subsequence windows via prefix sums (port of
-``repro/search/znorm.py``, offline forms and the slab gather).
+``repro/search/znorm.py``: the offline forms, the streaming
+``append_window_stats`` and the slab gather).
 
 ``window_stats`` returns the *raw* standard deviation (zero on a constant
 window); every normalization site divides through ``clamp_sigma``.
@@ -19,6 +20,7 @@ from repro_torch.core.common import EPS, clamp_sigma, norm_window_slice
 
 __all__ = [
     "EPS",
+    "append_window_stats",
     "clamp_sigma",
     "gather_norm_windows",
     "norm_window_slice",
@@ -78,6 +80,34 @@ def window_stats(ref: torch.Tensor, length: int) -> tuple[torch.Tensor, torch.Te
     mu = s1 / length
     var = torch.clamp_min(s2 / length - mu * mu, 0.0)
     return mu, torch.sqrt(var)
+
+
+def append_window_stats(
+    tail: torch.Tensor, chunk: torch.Tensor, length: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Stats of the windows that become valid when ``chunk`` is appended.
+
+    ``tail`` holds the last ``min(seen, length - 1)`` samples of the stream
+    so far (empty at stream start). Returns ``(new_tail, mu_new,
+    sigma_new)``: the stats cover window starts ``seen - len(tail)`` …
+    ``seen + len(chunk) - length`` in stream coordinates (every window
+    ending inside the new chunk, the ``length - 1`` windows straddling the
+    tail/chunk boundary included), and ``new_tail`` is the context to carry
+    into the next append. The cost is O(tail + chunk) however long the
+    stream already is, and the boundary-local prefix sums do not lose the
+    precision of differencing a running sum over the whole stream (so they
+    differ from the offline table by float32 rounding). With fewer than
+    ``length`` samples so far the stats are empty and ``new_tail`` is the
+    whole stream.
+    """
+    ctx = torch.cat([tail, chunk.to(tail.dtype)])
+    keep = min(ctx.shape[0], length - 1)
+    new_tail = ctx[ctx.shape[0] - keep:]
+    if ctx.shape[0] < length:
+        empty = ctx.new_zeros((0,))
+        return new_tail, empty, empty
+    mu, sigma = window_stats(ctx, length)
+    return new_tail, mu, sigma
 
 
 def window_finite_mask(ref: torch.Tensor, length: int) -> torch.Tensor:
