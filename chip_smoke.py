@@ -70,7 +70,31 @@ Drives ``repro_torch`` (never JAX, never ``repro``) on ``cuda:0``:
      A's (or D's) launches the sum of the ingests' rounds, kernel B's one
      a query tile per ingest that completes a window. Each arm prints its
      wall, ingests, rounds, lanes and the latency of an arrival at the
-     median and the 99th percentile;
+     median and the 99th percentile. Then the fault-tolerant host layer
+     ("phase 4 resilient"), each arm with its launches counted from 0:
+     (a) ``SearchConfig.resilient_search`` in ``RES_RANGES`` ranges over
+     the config's 4 shards (the default runner, host rounds a range):
+     coverage 1, one attempt a range, the offline winners or a proven near
+     tie, kernel A's launches the ranges' rounds and B's one a query tile
+     a range; (b) the same ranges on ``PersistentExecutor`` (C once a
+     range, A never; (a)'s winners or a near tie); (c) fault recipes
+     (``ShardFaults``, raised before the dispatch) on the reference cut to
+     ``RES_CUT`` samples: a dead shard, a range that fails once, a shard
+     that dies after two calls beside a dead one (coverage 1, the clean
+     cut search's winners or a near tie) and the last range dead on every
+     shard (coverage exactly ``1 - len/n_win``, that range uncovered, the
+     winners of an offline search over the covered prefix); (d) a
+     ``HedgedExecutor`` over two ``HostRoundsExecutor``s whose first
+     straggles on ``RES_SLOW_RANGES`` on a fake clock: those hedges, won,
+     and (a)'s bits (the same ranges unhedged); (e) ``SearchSupervisor``
+     around the default engine on arm (a)'s arrivals, a checkpoint every
+     ``RES_CKPT_EVERY``: transient faults at ``RES_FAULT_ARRIVALS``, a kill
+     after ``RES_KILL_AFTER`` and ``resume()``, ``async_ckpt=True``, and
+     the newest checkpoint truncated (``resume()`` falls back one), each
+     arm (a)'s bits (``ub``, ``best``, rounds, lanes); (f) the default
+     engine over a ``HedgedExecutor`` of two ingest executors, the first
+     straggling on ``RES_SLOW_INGESTS``: arm (a)'s bits, A launched arm
+     (a)'s rounds plus the backups';
   5. the same search at N = 50,000, l = 256, w = 25, Q = 4 on the card and
      with ``device="cpu"``, for both drivers and both EA variants;
      then the paper's four suites (``full``, ``pruned``, ``eapruned``,
@@ -96,9 +120,12 @@ Drives ``repro_torch`` (never JAX, never ``repro``) on ``cuda:0``:
      flight and run per query, and the host-rounds wall per round less
      kernel A's time;
   7. a ``{"stream": {...}}`` line of the streaming arms' numbers, a
+     ``{"resilient": {...}}`` line of the host layer's arms, a
      ``{"kernels": [...]}`` line (``launches`` on the offline path that runs
      each kernel, ``stream_launches`` in streaming arm (a) for A and B and
-     arm (c) for D); the last line is ``{"ok": true, "device": {...}}``.
+     arm (c) for D, ``resilient_launches`` in arm (a) of phase 4 resilient
+     for A and B and arm (b) for C); the last line is ``{"ok": true,
+     "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 It exits non-zero at once when ``torch.cuda.is_available()`` is false, and
@@ -111,6 +138,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -143,6 +171,20 @@ STREAM_RING = 65_536
 STREAM_BURST = 16
 STREAM_CROSS_Q = 2
 STREAM_CROSS_ARRIVAL = 8_000
+# The fault-tolerant host layer (phase 4 resilient): RES_RANGES work ranges
+# over the config's n_shards; the fault recipes on a reference cut to
+# RES_CUT samples; a HedgedExecutor whose executor 0 straggles on ranges
+# RES_SLOW_RANGES; supervised streams on stream arm (a)'s arrivals with a
+# checkpoint every RES_CKPT_EVERY arrivals, transient faults at arrivals
+# RES_FAULT_ARRIVALS and a kill after arrival RES_KILL_AFTER; a hedged
+# stream whose executor 0 straggles on ingests RES_SLOW_INGESTS.
+RES_RANGES = 8
+RES_CUT = 200_000
+RES_SLOW_RANGES = (2, 5)
+RES_CKPT_EVERY = 8
+RES_FAULT_ARRIVALS = (5, 20)
+RES_KILL_AFTER = 30
+RES_SLOW_INGESTS = (10, 60, 120)
 # Phase 3 holds the counter variants of kernels A and D against the plain
 # version run on each round's lanes followed by COUNT_COPIES copies of them
 # under ub = BIG (which never abandon): 65 x 2,048 = 133,120 rows, more
@@ -815,15 +857,26 @@ KERNELS = ("dtw_ea_multi_fused", "lb_keogh_all_windows",
            "dtw_ea_persistent_fused", "dtw_ea_multi", "dtw_ea_persistent")
 
 
+def launches_now() -> dict:
+    from repro_torch.kernels import ops
+
+    return {k: getattr(ops, k).launches for k in KERNELS}
+
+
+def zero_launches() -> None:
+    from repro_torch.kernels import ops
+
+    for name in KERNELS:
+        getattr(ops, name).launches = 0
+
+
 def counted_search(torch, ref, queries, cfg, **kw):
     """One ``multi_query_search`` on the card with every kernel's launch
     count set to 0 just before and read just after. Returns ``(result,
     wall seconds, launches)``."""
-    from repro_torch.kernels import ops
     from repro_torch.search import multi_query_search
 
-    for name in KERNELS:
-        getattr(ops, name).launches = 0
+    zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = multi_query_search(
@@ -833,7 +886,7 @@ def counted_search(torch, ref, queries, cfg, **kw):
     )
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return res, wall, {name: getattr(ops, name).launches for name in KERNELS}
+    return res, wall, launches_now()
 
 
 def phase_end_to_end(torch, cfg, ref, queries, rounds: str,
@@ -1097,26 +1150,28 @@ def near_tie(torch, ref, query, a: int, b: int, length: int,
     return float(d[0]), float(d[1])
 
 
-def check_stream_winners(torch, label, eng, offline, ref, queries, cfg,
-                         ties: dict) -> None:
-    """An arm's winners against the offline host rounds: each
-    ``best_start`` equal, or a near tie proven in float64 (both windows'
-    DTW within ``TOL_A``); ``best_dist`` within ``TOL_A``."""
-    bs, bd = eng.best()
-    got, want = bs.tolist(), offline.best_start.tolist()
-    rel = rel_err(bd, offline.best_dist)
-    say(f"  {label}: best_start {got}; equal to offline "
+def check_winners(torch, label, bs, bd, offline, ref, queries, cfg,
+                  ties: dict, what: str = "offline") -> None:
+    """Winners ``(bs, bd)`` against ``offline``'s ``(best_start,
+    best_dist)``: each ``best_start`` equal, or a near tie proven in
+    float64 (both windows' DTW within ``TOL_A``); ``best_dist`` within
+    ``TOL_A``."""
+    bs, bd = (torch.as_tensor(x) for x in (bs, bd))
+    got, want = bs.tolist(), torch.as_tensor(offline.best_start).tolist()
+    rel = rel_err(bd.cpu().to(torch.float64),
+                  torch.as_tensor(offline.best_dist).cpu().to(torch.float64))
+    say(f"  {label}: best_start {got}; equal to {what} "
         f"{got == want}; best_dist max rel err {rel:.3e} (tol {TOL_A})")
-    check(rel <= TOL_A, f"{label}: best_dist differs from offline")
+    check(rel <= TOL_A, f"{label}: best_dist differs from {what}")
     for qi, (g, w) in enumerate(zip(got, want)):
         if g == w:
             continue
         dg, dw = near_tie(torch, ref, queries[qi], g, w, cfg.query_len,
                           cfg.window)
         gap = abs(dg / dw - 1)
-        say(f"  {label}: query {qi} window {g} (offline {w}): float64 DTW "
+        say(f"  {label}: query {qi} window {g} ({what} {w}): float64 DTW "
             f"{dg!r} and {dw!r}, {gap:.3e} apart (tol {TOL_A})")
-        check(gap <= TOL_A, f"{label}: query {qi} found {g}, offline {w}, "
+        check(gap <= TOL_A, f"{label}: query {qi} found {g}, {what} {w}, "
               "and they are no near tie")
         ties.setdefault(label, []).append(qi)
 
@@ -1195,13 +1250,6 @@ def phase_stream(torch, cfg, ref, queries, host: dict) -> dict:
         return cfg.make_stream_engine(queries, device=DEVICE,
                                       executor=recording(results), **kw)
 
-    def zero():
-        for name in KERNELS:
-            getattr(ops, name).launches = 0
-
-    def counts():
-        return {k: getattr(ops, k).launches for k in KERNELS}
-
     def report(label, eng, fed, results, launches):
         rounds = sum(int(r.rounds.max()) for r in results)
         say(f"  {label}: {fed['wall_s']:.3f} s wall; {len(fed['lat'])} "
@@ -1236,11 +1284,11 @@ def phase_stream(torch, cfg, ref, queries, host: dict) -> dict:
     ):
         results = []
         eng = engine(results, **kw)
-        zero()
+        zero_launches()
         with kernel_events(torch, timed_a if label == "(a) default"
                            else []) as ev:
             fed = feed_stream(torch, eng, ref, arm_sizes)
-        launches = counts()
+        launches = launches_now()
         rounds = report(label, eng, fed, results, launches)
         if label == "(a) default":
             wall_ms = fed["wall_s"] * 1e3
@@ -1265,9 +1313,14 @@ def phase_stream(torch, cfg, ref, queries, host: dict) -> dict:
         check(eng.quarantined_windows == int(offline.quarantined) == 0
               and eng.quarantined_samples == 0,
               f"{label}: quarantine counts differ from offline's (0)")
-        check_stream_winners(torch, label, eng, offline, ref, queries, cfg,
-                             ties)
+        check_winners(torch, label, *eng.best(), offline, ref, queries, cfg,
+                      ties)
         arms[label]["best_start"] = eng.best()[0].tolist()
+        if label == "(a) default":  # the bits phase 4 resilient holds to
+            a_state = {"best": eng.best()[0].clone(),
+                       "ub": eng.best()[1].clone(), "rounds": eng.rounds,
+                       "lanes": eng.lanes, "ingests": len(results),
+                       "sizes": sizes}
         del eng, results
     pa, pr = arms["(a) default"], arms["(b2) raw, (a)'s arrivals"]
     say(f"  the same {len(sizes)} arrivals, padded to stream_chunk="
@@ -1289,7 +1342,7 @@ def phase_stream(torch, cfg, ref, queries, host: dict) -> dict:
     overlap = STREAM_BURST + l - 1
     results = []
     eng = engine(results, ring_capacity=STREAM_RING)
-    zero()
+    zero_launches()
     state = {}
 
     def readmit(e, seen):
@@ -1302,19 +1355,19 @@ def phase_stream(torch, cfg, ref, queries, host: dict) -> dict:
 
     fed = feed_stream(torch, eng, dirty, sizes, after=readmit)
     seen = fed["stop"]
-    before = counts()
+    before = launches_now()
     best0, ub0 = (t.clone() for t in eng.best())
-    zero()
+    zero_launches()
     snap = eng.save_state()  # flushes the rescore: one launch of kernel D
-    flush = counts()
+    flush = launches_now()
     check_rescore(torch, eng, ref, pos - l + 1, overlap, best0, ub0, snap)
     rest = sizes[len(fed["lat"]):]  # arm (a)'s pieces from here on
     fresh_results = []
     fresh = engine(fresh_results, ring_capacity=STREAM_RING)
     fresh.restore_state(snap)
-    zero()
+    zero_launches()
     fed2 = feed_stream(torch, fresh, dirty, rest, start=seen)
-    after = counts()
+    after = launches_now()
     say(f"  (d) re-admission: a {STREAM_BURST}-sample NaN burst at {pos}; "
         f"correct() after {seen} samples: quarantined windows, samples "
         f"before {state['before']}, {state['queued']} windows queued, "
@@ -1339,8 +1392,8 @@ def phase_stream(torch, cfg, ref, queries, host: dict) -> dict:
           "number of windows over the burst")
     check(before["dtw_ea_multi_fused"] + after["dtw_ea_multi_fused"]
           == fresh.rounds, "(d): launches of kernel A are not the rounds")
-    check_stream_winners(torch, "(d) re-admission", fresh, offline, ref,
-                         queries, cfg, ties)
+    check_winners(torch, "(d) re-admission", *fresh.best(), offline, ref,
+                  queries, cfg, ties)
     # Against arm (a), fed the same pieces: the same best_start, or a near
     # tie (the burst's ingests difference zero-filled prefix sums).
     got, want = fresh.best()[0].tolist(), arms["(a) default"]["best_start"]
@@ -1353,7 +1406,443 @@ def phase_stream(torch, cfg, ref, queries, host: dict) -> dict:
             ties.setdefault("(d) against (a)", []).append(qi)
     arms["near_ties"] = ties
     say(f"  queries that needed the near-tie rule: {ties or 'none'}")
-    return {"arms": arms, "a": by_arm["(a) default"], "c": by_arm["(c) slab"]}
+    return {"arms": arms, "a": by_arm["(a) default"], "c": by_arm["(c) slab"],
+            "a_state": a_state}
+
+
+class FakeClock:
+    """A clock the caller moves (``advance``): hedging decisions made on it
+    are the recipe's, whatever the card's times."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def __call__(self) -> float:
+        return self.now
+
+    def advance(self, dt: float) -> None:
+        self.now += dt
+
+
+class ShardFaults:
+    """A ``resilient_search`` runner that raises before the dispatch on
+    chosen calls: shards that always fail (``dead``), ranges that fail
+    once (``flaky``, by ``lo``) or on every shard (``dead_ranges``), and
+    shards that complete ``fail_after[shard]`` calls and then die. Each
+    call is kept in ``calls`` as ``(shard, lo, hi, ok)``."""
+
+    def __init__(self, runner, dead=(), flaky=(), dead_ranges=(),
+                 fail_after=None):
+        self.runner = runner
+        self.dead, self.flaky = set(dead), set(flaky)
+        self.dead_ranges = set(dead_ranges)
+        self.fail_after = dict(fail_after or {})
+        self.calls, self.n = [], {}
+
+    def __call__(self, shard, lo, hi, ub):
+        self.n[shard] = self.n.get(shard, 0) + 1
+        fail = (shard in self.dead or lo in self.dead_ranges
+                or self.n[shard] > self.fail_after.get(shard, self.n[shard]))
+        if lo in self.flaky:
+            self.flaky.discard(lo)
+            fail = True
+        self.calls.append((shard, lo, hi, not fail))
+        if fail:
+            raise RuntimeError(f"injected fault: shard {shard}, range {lo}")
+        return self.runner(shard, lo, hi, ub)
+
+
+def recorded(cls, records: list, tag=None):
+    """``cls`` (an executor) whose ``run_range`` appends ``{tag, lo, hi,
+    rounds, ms}`` to ``records``; reading the rounds waits for the range's
+    device work, so ``ms`` includes it."""
+
+    class Recorded(cls):
+        def run_range(self, plan, state, lo, hi):
+            t0 = time.perf_counter()
+            rr = super().run_range(plan, state, lo, hi)
+            records.append({"tag": tag, "lo": lo, "hi": hi,
+                            "rounds": int(rr.stats.rounds.max()),
+                            "ms": (time.perf_counter() - t0) * 1e3})
+            return rr
+
+    return Recorded
+
+
+class Straggler:
+    """An executor proxy on a ``FakeClock``: each call advances it by
+    ``slow_dt`` when the call's index (from 0) is in ``slow_at``, else by
+    1; with ``results``, each ``run_ingest`` result is kept there."""
+
+    def __init__(self, executor, clock, slow_at=(), slow_dt=50.0,
+                 results=None):
+        self.executor, self.clock = executor, clock
+        self.slow_at, self.slow_dt = set(slow_at), slow_dt
+        self.results, self.calls = results, 0
+
+    def _tick(self):
+        self.clock.advance(self.slow_dt if self.calls in self.slow_at
+                           else 1.0)
+        self.calls += 1
+
+    def run_range(self, *args):
+        out = self.executor.run_range(*args)
+        self._tick()
+        return out
+
+    def run_ingest(self, *args, **kwargs):
+        out = self.executor.run_ingest(*args, **kwargs)
+        if self.results is not None:
+            self.results.append(out[1])
+        self._tick()
+        return out
+
+
+def check_launches(label, launches, a=0, b=0, c=0) -> None:
+    """Kernel A, B and C launched ``a``, ``b`` and ``c`` times, D and E
+    never."""
+    want = {"dtw_ea_multi_fused": a, "lb_keogh_all_windows": b,
+            "dtw_ea_persistent_fused": c, "dtw_ea_multi": 0,
+            "dtw_ea_persistent": 0}
+    say(f"  {label}: launches {launches} (expected {want})")
+    check(launches == want and a + c > 0 and b > 0,
+          f"{label}: launches {launches}, expected {want}")
+
+
+def phase_resilient(torch, cfg, ref, queries, host: dict, sweep: dict,
+                    stream: dict, workdir: str) -> dict:
+    """The fault-tolerant host layer at the main path's shapes, arms
+    (a)-(f) of the module docstring; checkpoints under ``workdir``."""
+    import copy
+    import dataclasses
+    import os
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.search import IncumbentState
+    from repro_torch.search import resilient
+    from repro_torch.search.pipeline import (
+        HostRoundsExecutor,
+        PersistentExecutor,
+    )
+    from repro_torch.search.resilient import executor_runner, partition_ranges
+
+    offline, n, l = host["res"], cfg.ref_len, cfg.query_len
+    nq = cfg.n_queries
+    tiles = len(ops.lb_query_tiles(nq, l))
+    n_win = n - l + 1
+    ranges = partition_ranges(n_win, RES_RANGES)
+    plan = cfg.make_plan()
+    ties, arms = {}, {}
+    say(f"[4 resilient] N={n} l={l} w={cfg.window} Q={nq} batch={cfg.batch}: "
+        f"n_shards={cfg.n_shards}, {RES_RANGES} ranges of "
+        f"{ranges[0][1] - ranges[0][0]} windows (the last "
+        f"{ranges[-1][1] - ranges[-1][0]})")
+
+    def arm(label, res, wall, launches, **extra):
+        arms[label] = dict(
+            wall_s=wall, attempts=res.attempts, coverage=res.coverage,
+            reassignments=res.reassignments,
+            failed_shards=list(res.failed_shards),
+            hedges_launched=res.hedges_launched, hedges_won=res.hedges_won,
+            launches={k: v for k, v in launches.items() if v}, **extra)
+
+    def search(series, **kw):
+        """``cfg.resilient_search`` on the card in RES_RANGES ranges, its
+        launches counted from 0."""
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cfg.resilient_search(series, queries, device=DEVICE,
+                                   n_ranges=RES_RANGES, **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, launches_now()
+
+    # (a) the clean search, the default runner (host rounds a range).
+    recs = []
+    resilient.HostRoundsExecutor = recorded(HostRoundsExecutor, recs)
+    try:
+        res_a, wall, launches = search(ref)
+    finally:
+        resilient.HostRoundsExecutor = HostRoundsExecutor
+    rounds = sum(r["rounds"] for r in recs)
+    say(f"  (a) clean: {wall:.3f} s wall (offline host rounds "
+        f"{host['wall_s']:.3f} s); {res_a.attempts} attempts, coverage "
+        f"{res_a.coverage}, uncovered {res_a.uncovered}; rounds "
+        f"{rounds} (a range's: {[r['rounds'] for r in recs]}) against the "
+        f"offline {int(offline.rounds.max())}; a range "
+        f"{[round(r['ms'], 1) for r in recs]} ms; quarantined "
+        f"{res_a.quarantined}")
+    check(res_a.coverage == 1.0 and res_a.uncovered == ()
+          and res_a.attempts == RES_RANGES == len(recs)
+          and res_a.reassignments == 0 and res_a.failed_shards == (),
+          "(a): the clean search did not cover every range in one attempt")
+    check(res_a.quarantined == int(offline.quarantined),
+          "(a): quarantine differs from offline")
+    check_launches("(a)", launches, a=rounds, b=tiles * RES_RANGES)
+    check_winners(torch, "(a)", res_a.best_start, res_a.best_dist, offline,
+                  ref, queries, cfg, ties)
+    arm("(a) clean", res_a, wall, launches, rounds=rounds,
+        range_ms=[r["ms"] for r in recs])
+
+    # (b) the same ranges, each one persistent sweep.
+    recs = []
+    ex = recorded(PersistentExecutor, recs)(ref, queries, device=DEVICE)
+    res_b, wall, launches = search(ref, runner=executor_runner(ex, plan))
+    say(f"  (b) PersistentExecutor: {wall:.3f} s wall (offline persistent "
+        f"{sweep['wall_s']:.3f} s); a range "
+        f"{[round(r['ms'], 1) for r in recs]} ms")
+    check(res_b.coverage == 1.0 and res_b.attempts == RES_RANGES,
+          "(b): the persistent ranges did not all complete")
+    check_launches("(b)", launches, c=RES_RANGES, b=tiles * RES_RANGES)
+    check_winners(torch, "(b)", res_b.best_start, res_b.best_dist, res_a,
+                  ref, queries, cfg, ties, what="(a)")
+    arm("(b) persistent", res_b, wall, launches,
+        range_ms=[r["ms"] for r in recs])
+    del ex
+
+    # (c) fault recipes at a reference cut to RES_CUT samples.
+    n_cut = RES_CUT - l + 1
+    cut_ranges = partition_ranges(n_cut, RES_RANGES)
+    cut = ref[:RES_CUT]
+    res_c0, wall, launches = search(cut)
+    off_cut, _, _ = counted_search(torch, cut, queries, cfg)
+    say(f"  (c) the reference cut to its first {RES_CUT} samples: clean "
+        f"{wall:.3f} s, launches {launches}")
+    check(res_c0.coverage == 1.0, "(c): the clean cut search lost coverage")
+    check_winners(torch, "(c) clean, cut", res_c0.best_start,
+                  res_c0.best_dist, off_cut, ref, queries, cfg, ties)
+    arm("(c) clean, cut", res_c0, wall, launches)
+    last = cut_ranges[-1]
+    recipes = [
+        ("dead shard 1", dict(dead={1})),
+        ("range 2 fails once", dict(flaky={cut_ranges[2][0]})),
+        ("shard 0 dies after two calls, shard 1 dead",
+         dict(fail_after={0: 2}, dead={1})),
+        ("the last range dead on every shard",
+         dict(dead_ranges={last[0]})),
+    ]
+    for label, recipe in recipes:
+        recs, sleeps = [], []
+        ex = recorded(HostRoundsExecutor, recs)(cut, queries, device=DEVICE)
+        inj = ShardFaults(executor_runner(ex, plan), **recipe)
+        res, wall, launches = search(cut, runner=inj, sleep=sleeps.append)
+        label = f"(c) {label}"
+        say(f"  {label}: {wall:.3f} s; {res.attempts} attempts, "
+            f"{res.reassignments} reassignments, failed shards "
+            f"{res.failed_shards}, coverage {res.coverage!r}, uncovered "
+            f"{res.uncovered}; {len(sleeps)} backoff sleeps (recorded, not "
+            f"slept) {[round(x, 4) for x in sleeps]}")
+        check(res.attempts == len(inj.calls)
+              and len(recs) == sum(ok for *_x, ok in inj.calls),
+              f"{label}: attempts are not the runner's calls")
+        check_launches(label, launches, a=sum(r["rounds"] for r in recs),
+                       b=tiles * len(recs))
+        if "dead on every shard" in label:
+            check(res.coverage == (n_cut - (last[1] - last[0])) / n_cut
+                  and res.uncovered == (last,),
+                  f"{label}: coverage is not 1 - len(range)/n_win")
+            prefix, _, _ = counted_search(torch, ref[:last[0] + l - 1],
+                                          queries, cfg)
+            check_winners(torch, label, res.best_start, res.best_dist,
+                          prefix, ref, queries, cfg, ties,
+                          what=f"offline over ref[:{last[0] + l - 1}]")
+        else:
+            check(res.coverage == 1.0 and res.uncovered == (),
+                  f"{label}: coverage lost")
+            check_winners(torch, label, res.best_start, res.best_dist,
+                          res_c0, ref, queries, cfg, ties,
+                          what="the clean cut search")
+        if label.startswith("(c) dead shard"):
+            check(res.failed_shards == (1,) and res.reassignments == 2,
+                  f"{label}: shard 1's two ranges were not reassigned")
+        if label.startswith("(c) shard 0"):
+            check(res.failed_shards == (0, 1),
+                  f"{label}: shards 0 and 1 should be marked failed")
+        if label.startswith("(c) range 2"):
+            check(res.attempts == RES_RANGES + 1 and len(sleeps) == 1,
+                  f"{label}: one retry after one backoff expected")
+        arm(label, res, wall, launches, sleeps=sleeps)
+        del ex
+
+    # (d) HedgedExecutor over two HostRoundsExecutors, the full reference:
+    # executor 0 straggles (on the fake clock) on RES_SLOW_RANGES.
+    recs = []
+    clock = FakeClock()
+    execs = [Straggler(recorded(HostRoundsExecutor, recs, i)(
+                 ref, queries, device=DEVICE), clock,
+                 slow_at=RES_SLOW_RANGES if i == 0 else ())
+             for i in range(2)]
+    hedged = cfg.make_hedged_executor(execs, clock=clock)
+    state = IncumbentState(
+        ub=torch.full((nq,), float("inf"), device=DEVICE),
+        best=torch.full((nq,), -1, dtype=torch.int64, device=DEVICE))
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lo, hi in ranges:
+        state = hedged.run_range(plan, state, lo, hi).state
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launches_now()
+    backups = [r for r in recs if r["tag"] == 1]
+    same = (np.array_equal(state.best.cpu().numpy(), res_a.best_start)
+            and np.array_equal(state.ub.cpu().numpy().astype(np.float64),
+                               res_a.best_dist))
+    say(f"  (d) HedgedExecutor: {wall:.3f} s wall; hedges launched "
+        f"{hedged.hedges_launched}, won {hedged.hedges_won}; backups ran "
+        f"ranges {[(r['lo'], r['hi']) for r in backups]}; last effective "
+        f"dt {hedged.last_effective_dt}; best_start and best_dist the bits "
+        f"of (a) (the same ranges unhedged): {same}")
+    check(hedged.hedges_launched == hedged.hedges_won == len(RES_SLOW_RANGES)
+          and [r["lo"] for r in backups]
+          == [ranges[i][0] for i in RES_SLOW_RANGES],
+          "(d): the hedges are not the recipe's")
+    check(same, "(d): hedging changed the answer")
+    check_launches("(d)", launches, a=sum(r["rounds"] for r in recs),
+                   b=tiles * len(recs))
+    arms["(d) hedged ranges"] = dict(
+        wall_s=wall, attempts=len(recs), hedges_launched=hedged.hedges_launched,
+        hedges_won=hedged.hedges_won,
+        launches={k: v for k, v in launches.items() if v})
+    del execs, hedged
+
+    # (e) SearchSupervisor around the default engine, on stream arm (a)'s
+    # arrivals; every run must give arm (a)'s bits.
+    a_state = stream["a_state"]
+    sizes = a_state["sizes"]
+    starts = [sum(sizes[:i]) for i in range(len(sizes) + 1)]
+
+    def same_as_a(label, eng):
+        b, d = eng.best()
+        ok = (torch.equal(b, a_state["best"]) and torch.equal(d, a_state["ub"])
+              and eng.rounds == a_state["rounds"]
+              and eng.lanes == a_state["lanes"])
+        say(f"  {label}: ub, best, rounds {eng.rounds}, lanes {eng.lanes} "
+            f"the bits of stream arm (a): {ok}")
+        check(ok, f"{label}: not the uninterrupted stream's bits")
+
+    def engine(results):
+        return cfg.make_stream_engine(queries, device=DEVICE,
+                                      executor=recording(results))
+
+    def feed(sup, first, last, inject=None):
+        for i in range(first, last):
+            sup.ingest(ref[starts[i]:starts[i + 1]], fail_injector=inject)
+
+    def supervised(label, runs):
+        """``runs``: ``(first, last, resume, dir, async_ckpt, inject)``, a
+        fresh engine and supervisor each (a process that starts, resumes
+        when ``resume`` is set, and feeds arrivals ``[first, last)``), or
+        a callable run between two of them."""
+        results, sleeps, info = [], [], []
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for run in runs:
+            if callable(run):
+                run()
+                continue
+            first, last, resume, d, async_ckpt, inject = run
+            eng = engine(results)
+            sup = dataclasses.replace(cfg, async_ckpt=async_ckpt) \
+                .make_supervisor(eng, d, ckpt_every=RES_CKPT_EVERY,
+                                 sleep=sleeps.append)
+            if resume is not None:
+                k = sup.resume()
+                info.append(f"resume() {k}")
+                check(k == resume, f"{label}: resume() gave {k}, not "
+                      f"{resume}")
+            feed(sup, first, last, inject)
+            sup.close()
+            info.append(f"restarts {sup.restarts}")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launches_now()
+        rounds = sum(int(r.rounds.max()) for r in results)
+        say(f"  (e) {label}: {wall:.3f} s wall; {len(results)} ingests "
+            f"(replays included); {', '.join(info)}; sleeps {sleeps}")
+        check_launches(f"(e) {label}", launches, a=rounds,
+                       b=tiles * len(results))
+        same_as_a(f"(e) {label}", eng)
+        arms[f"(e) {label}"] = dict(
+            wall_s=wall, ingests=len(results), info=info,
+            launches={k: v for k, v in launches.items() if v})
+        return sup
+
+    n_arr = len(sizes)
+    pending = set(RES_FAULT_ARRIVALS)
+
+    def inject(i):
+        if i in pending:
+            pending.discard(i)
+            raise RuntimeError(f"injected fault at arrival {i}")
+
+    d1 = os.path.join(workdir, "faults")
+    sup = supervised(f"transient faults at arrivals {RES_FAULT_ARRIVALS}",
+                     [(0, n_arr, None, d1, False, inject)])
+    check(sup.restarts == len(RES_FAULT_ARRIVALS) and not pending,
+          "(e): the faults were not each retried once")
+    # Killed after arrival RES_KILL_AFTER (checkpoints at every
+    # RES_CKPT_EVERY), resumed by a fresh engine and supervisor; a copy of
+    # the killed run's directory with its newest checkpoint's leaf
+    # truncated, where resume() falls back one checkpoint.
+    d2, d4 = (os.path.join(workdir, x) for x in ("kill", "damaged"))
+    k = RES_KILL_AFTER // RES_CKPT_EVERY * RES_CKPT_EVERY
+
+    def damage():
+        shutil.copytree(d2, d4)
+        with open(os.path.join(d4, f"step_{k:08d}", "ub.npy"), "r+b") as f:
+            f.truncate(16)
+
+    supervised(f"killed after arrival {RES_KILL_AFTER}, resumed",
+               [(0, RES_KILL_AFTER, None, d2, False, None), damage,
+                (k, n_arr, k, d2, False, None)])
+    supervised("async_ckpt=True",
+               [(0, n_arr, None, os.path.join(workdir, "async"), True, None)])
+    supervised(f"newest checkpoint (step {k}) truncated",
+               [(k - RES_CKPT_EVERY, n_arr, k - RES_CKPT_EVERY, d4, False,
+                 None)])
+    shutil.rmtree(workdir, ignore_errors=True)
+
+    # (f) a hedged stream: the default engine over a HedgedExecutor of two
+    # ingest executors, executor 0 straggling on RES_SLOW_INGESTS.
+    clock, backup_results = FakeClock(), []
+    hedges = {}
+
+    def hedged_factory(default):
+        pair = [Straggler(default, clock, slow_at=RES_SLOW_INGESTS),
+                Straggler(copy.copy(default), clock, results=backup_results)]
+        hedges["executor"] = cfg.make_hedged_executor(pair, clock=clock)
+        return hedges["executor"]
+
+    eng = cfg.make_stream_engine(queries, device=DEVICE,
+                                 executor=hedged_factory)
+    zero_launches()
+    fed = feed_stream(torch, eng, ref, sizes)
+    launches = launches_now()
+    h = hedges["executor"]
+    extra = sum(int(r.rounds.max()) for r in backup_results)
+    say(f"  (f) hedged stream: {fed['wall_s']:.3f} s wall; hedges launched "
+        f"{h.hedges_launched}, won {h.hedges_won}; the backups' rounds "
+        f"{extra}; an arrival {pct(fed['lat'], 50):.2f} ms at the median, "
+        f"{pct(fed['lat'], 99):.2f} ms at the 99th percentile")
+    check(h.hedges_launched == h.hedges_won == len(RES_SLOW_INGESTS)
+          == len(backup_results), "(f): the hedges are not the recipe's")
+    check_launches("(f)", launches, a=a_state["rounds"] + extra,
+                   b=tiles * (a_state["ingests"] + len(backup_results)))
+    same_as_a("(f)", eng)
+    arms["(f) hedged stream"] = dict(
+        wall_s=fed["wall_s"], hedges_launched=h.hedges_launched,
+        hedges_won=h.hedges_won, p50_ms=pct(fed["lat"], 50),
+        p99_ms=pct(fed["lat"], 99),
+        launches={k: v for k, v in launches.items() if v})
+    arms["near_ties"] = ties
+    say(f"  queries that needed the near-tie rule: {ties or 'none'}")
+    return {"arms": arms, "a": arms["(a) clean"]["launches"],
+            "b": arms["(b) persistent"]["launches"]}
 
 
 def phase_stream_cross(torch, cfg) -> None:
@@ -1796,6 +2285,9 @@ def main() -> int:
                  queries, host, sweep)
     stream = timed("phase 4 stream", phase_stream, torch, cfg, ref, queries,
                    host)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    resil = timed("phase 4 resilient", phase_resilient, torch, cfg, ref,
+                  queries, host, sweep, stream, workdir)
     timed("phase 5", phase_cross_check, torch)
     timed("phase 5 baselines", phase_baselines, torch, cfg)
     timed("phase 5 stream cross-check", phase_stream_cross, torch, cfg)
@@ -1808,11 +2300,18 @@ def main() -> int:
     launches["dtw_ea_persistent"] = slab["dtw_ea_persistent"]
     # Streaming launches: arm (a) for A and B, arm (c) for D.
     stream_launches = dict(stream["a"], dtw_ea_multi=stream["c"]["dtw_ea_multi"])
+    # The host layer's: the clean resilient search (a) for A and B, its
+    # persistent form (b) for C.
+    resil_launches = dict(resil["a"])
+    resil_launches["dtw_ea_persistent_fused"] = resil["b"].get(
+        "dtw_ea_persistent_fused", 0)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["stream_launches"] = stream_launches[k["name"]]
+        k["resilient_launches"] = resil_launches.get(k["name"], 0)
     say(f"total {time.perf_counter() - t_all:.2f} s")
     say(json.dumps({"stream": stream["arms"]}))
+    say(json.dumps({"resilient": resil["arms"]}))
     say(json.dumps({"kernels": kernels}))
     say(card["smi"])
     say(json.dumps({"ok": True, "device": {

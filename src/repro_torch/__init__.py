@@ -10,12 +10,15 @@ It covers offline subsequence search (``search.multi.multi_query_search``,
 (``rounds="host"`` or ``"persistent"``) and both gather modes, with the
 paper's counters and its four suites (``eapruned``, ``eapruned_nolb``,
 ``full``, ``pruned``); streaming search (``serve.StreamSearchEngine``,
-``search.streaming``); and the core API (``core``). The five kernels
+``search.streaming``); the core API (``core``); and the fault-tolerant
+host layer: the executor seam (``search.pipeline``: host-rounds,
+persistent and hedged executors), ``search.resilient.resilient_search``,
+``serve.SearchSupervisor``, ``train.checkpoint`` and
+``distributed.fault_tolerance``. The five kernels
 (A-E, one for each ``pl.pallas_call`` of ``repro``) are CUDA C++ for
 ``sm_90a`` (``kernels/csrc``); on CPU tensors each kernel's wrapper runs the
-kernel's plain PyTorch version instead. The host layer (executors,
-supervision), sharded search and the LM scaffolding are not ported yet
-(ROADMAP.md Queue 1).
+kernel's plain PyTorch version instead. Sharded search and the LM
+scaffolding are not ported yet (ROADMAP.md Queue 1).
 
 Entry points take a ``device`` argument and run on CUDA unless the caller
 passes ``device="cpu"``; with no device given and no CUDA present they

@@ -15,8 +15,17 @@ shape: bigger arrivals are split and every piece padded to it),
 ``ring_capacity``, the monitoring ring over the last W raw samples
 (``None``: no history), and ``debug_checks``, the per-ingest NaN tripwire
 on the incumbents (``False`` still defers to ``$REPRO_DEBUG_CHECKS``).
-The resilience and hedging knobs belong to modules not ported yet
-(ROADMAP.md Queue 1).
+
+The resilience and hedging knobs are ``repro``'s, at its defaults (see
+its config for what each does), and three helpers hand them over:
+``resilient_search`` (``search.resilient``: ``n_shards``,
+``shard_max_retries``, ``shard_backoff``, ``retry_jitter``,
+``shard_timeout``, ``require_full_coverage``, ``hedge``, ``hedge_delay``,
+``hedge_max_inflight`` and the breaker's), ``make_hedged_executor``
+(``search.pipeline.HedgedExecutor``: ``hedge_delay``,
+``hedge_max_inflight`` and the breaker's) and ``make_supervisor``
+(``serve.supervisor.SearchSupervisor``: ``async_ckpt`` and the
+breaker's).
 """
 from dataclasses import dataclass
 
@@ -40,6 +49,18 @@ class SearchConfig:
     ring_capacity: int | None = None  # monitoring ring over last W samples
     quarantine: bool = True          # non-finite window quarantine (§2.6)
     debug_checks: bool = False       # incumbent NaN tripwire (debug only)
+    n_shards: int = 4                # resilient-search work ranges (§2.7)
+    shard_max_retries: int = 2       # transient failures per (range, shard)
+    shard_backoff: float = 0.05      # base retry sleep, doubles per retry
+    shard_timeout: float | None = None  # soft per-range wall-clock budget
+    require_full_coverage: bool = False  # degraded result -> CoverageError
+    async_ckpt: bool = False         # off-thread supervisor checkpoints
+    hedge: bool = False              # race stragglers on a backup shard (§2.9)
+    hedge_delay: float | None = None  # None = threshold x EWMA from monitor
+    hedge_max_inflight: int = 2      # backups raced per straggling attempt
+    breaker_threshold: int = 3       # consecutive failures to open breaker
+    breaker_cooldown: float = 1.0    # open-breaker load-shed seconds
+    retry_jitter: bool = True        # decorrelated retry backoff (§2.9)
 
     @property
     def window(self) -> int:
@@ -86,6 +107,59 @@ class SearchConfig:
         )
         kw.update(overrides)
         return StreamSearchEngine(queries, self.query_len, self.window, **kw)
+
+    def _breaker(self) -> dict:
+        return dict(breaker_threshold=self.breaker_threshold,
+                    breaker_cooldown=self.breaker_cooldown)
+
+    def resilient_search(self, ref, queries, **overrides):
+        """``search.resilient.resilient_search`` of ``queries`` over
+        ``ref`` with this config's search, resilience and hedging knobs;
+        ``overrides`` replace individual arguments (``device``,
+        ``n_ranges``, ``runner``, ``sleep``, ``clock``, ...)."""
+        from repro_torch.search.resilient import resilient_search
+
+        kw = dict(
+            n_shards=self.n_shards,
+            variant=self.variant,
+            batch=self.batch,
+            band_width=self.band_width,
+            block_k=self.block_k,
+            quarantine=self.quarantine,
+            max_retries=self.shard_max_retries,
+            backoff=self.shard_backoff,
+            jitter=self.retry_jitter,
+            timeout=self.shard_timeout,
+            hedge=self.hedge,
+            hedge_delay=self.hedge_delay,
+            hedge_max_inflight=self.hedge_max_inflight,
+            require_full_coverage=self.require_full_coverage,
+            **self._breaker(),
+        )
+        kw.update(overrides)
+        return resilient_search(ref, queries, self.query_len, self.window,
+                                **kw)
+
+    def make_hedged_executor(self, executors, **overrides):
+        """A ``HedgedExecutor`` over ``executors`` with this config's
+        hedging and breaker knobs (``overrides``: ``clock``, ...)."""
+        from repro_torch.search.pipeline import HedgedExecutor
+
+        kw = dict(hedge_delay=self.hedge_delay,
+                  hedge_max_inflight=self.hedge_max_inflight,
+                  **self._breaker())
+        kw.update(overrides)
+        return HedgedExecutor(executors, **kw)
+
+    def make_supervisor(self, engine, ckpt_dir: str, **overrides):
+        """A ``SearchSupervisor`` around ``engine`` with this config's
+        ``async_ckpt`` and breaker knobs (``overrides``: ``ckpt_every``,
+        ``sleep``, ...)."""
+        from repro_torch.serve.supervisor import SearchSupervisor
+
+        kw = dict(async_ckpt=self.async_ckpt, **self._breaker())
+        kw.update(overrides)
+        return SearchSupervisor(engine, ckpt_dir, **kw)
 
 
 CONFIG = SearchConfig()

@@ -7,6 +7,7 @@ the scan.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 BIG = 1.0e30  # pruned-cell sentinel (finite stand-in for +inf)
@@ -40,6 +41,37 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def as_float32(x, device: torch.device) -> torch.Tensor:
+    """``x`` (tensor or array-like) as a float32 tensor on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
+
+
+def block_until_ready(tree):
+    """Wait for the device work behind every CUDA tensor in ``tree``
+    (tensors nested in tuples, lists and dicts); returns ``tree``.
+
+    The port's ``jax.block_until_ready``: the host layer reads its clock
+    after this, so an attempt's time includes the work it queued. One
+    ``torch.cuda.synchronize`` per CUDA device found; nothing for CPU
+    tensors or numpy arrays.
+    """
+    devices, stack = set(), [tree]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, torch.Tensor):
+            if x.is_cuda:
+                devices.add(x.device)
+        elif isinstance(x, dict):
+            stack.extend(x.values())
+        elif isinstance(x, (tuple, list)):
+            stack.extend(x)
+    for dev in devices:
+        torch.cuda.synchronize(dev)
+    return tree
 
 
 def clamp_sigma(sigma: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,295 @@
+"""Fault tolerance for search: stragglers, circuit breakers, backoff, hedging
+(port of the search-side half of ``repro/distributed/fault_tolerance.py``).
+
+  * ``TRANSIENT`` / ``GUARD_ERRORS`` — the transient/guard split every
+    supervisor shares: ``RuntimeError``, ``ValueError`` and ``OSError``
+    retry (a device falling over, a flaky allocator, an RPC deadline —
+    ``TimeoutError`` is an ``OSError``; ``torch.cuda.OutOfMemoryError`` is
+    a ``RuntimeError``); the typed guard errors are caller bugs and
+    re-raise at once. Guard errors subclass ``ValueError`` /
+    ``RuntimeError``, so catch them first.
+  * ``StragglerMonitor`` — an attempt-time EWMA with a threshold.
+  * ``CircuitBreaker`` / ``WorkerHealth`` — the per-worker health the
+    hedged scheduling layer routes on (EWMA latency plus a closed → open →
+    half-open → closed breaker).
+  * ``DecorrelatedJitterBackoff`` — retry sleeps drawn from
+    ``uniform(base, 3 * prev)`` capped at ``cap``, from
+    ``np.random.default_rng(seed)`` with ``$REPRO_FAULT_SEED`` as the
+    default seed, so both packages draw the same sleeps.
+  * ``hedge_race`` — the deterministic host emulation of racing backup
+    attempts against a straggling primary.
+
+Pure Python and numpy: the callers (``search.resilient``,
+``search.pipeline.HedgedExecutor``, ``serve.supervisor``) make an
+attempt's time include its device work before they read the clock.
+``repro``'s ``TrainingSupervisor`` and ``elastic_reshard`` drive the LM
+trainer and wait for it (ROADMAP.md Queue 1 item 7).
+"""
+from __future__ import annotations
+
+import os
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, NamedTuple
+
+import numpy as np
+
+from repro_torch.core import guards
+
+TRANSIENT = (RuntimeError, ValueError, OSError)
+GUARD_ERRORS = (guards.SearchInputError, guards.StreamStateError)
+
+
+@dataclass
+class StragglerMonitor:
+    threshold: float = 3.0          # x EWMA before flagging
+    alpha: float = 0.2
+    ewma: float | None = None
+    flagged: list = field(default_factory=list)
+    on_straggler: Callable[[int, float, float], None] | None = None
+
+    def observe(self, step: int, dt: float) -> bool:
+        if self.ewma is None:
+            self.ewma = dt
+            return False
+        is_straggler = dt > self.threshold * self.ewma
+        if is_straggler:
+            self.flagged.append((step, dt, self.ewma))
+            if self.on_straggler:
+                self.on_straggler(step, dt, self.ewma)
+        # stragglers don't poison the baseline estimate
+        self.ewma = (1 - self.alpha) * self.ewma + self.alpha * min(
+            dt, self.ewma * self.threshold
+        )
+        return is_straggler
+
+
+class CircuitBreaker:
+    """Consecutive-failure circuit breaker.
+
+    State machine: **closed** (normal) → **open** after ``threshold``
+    consecutive failures (the worker sheds load for ``cooldown`` seconds)
+    → **half_open** once the cooldown elapses and a scheduler *acquires*
+    the one probe slot → **closed** on probe success, back to **open**
+    (cooldown restarted) on probe failure.
+
+    ``ready()`` is a pure read; ``acquire()`` is called only on the worker
+    actually picked, and turns an elapsed cooldown into the one half-open
+    probe.
+    """
+
+    def __init__(
+        self,
+        threshold: int = 3,
+        cooldown: float = 1.0,
+        clock: Callable[[], float] = time.time,
+    ):
+        if threshold < 1:
+            raise guards.SearchInputError("breaker threshold must be >= 1")
+        if cooldown < 0:
+            raise guards.SearchInputError("breaker cooldown must be >= 0")
+        self.threshold = int(threshold)
+        self.cooldown = float(cooldown)
+        self._clock = clock
+        self.state = "closed"
+        self.consecutive_failures = 0
+        self.failures = 0
+        self.trips = 0
+        self.opened_at: float | None = None
+
+    def ready(self) -> bool:
+        """May an attempt be routed here? (Pure; consumes nothing.)"""
+        if self.state == "closed":
+            return True
+        if self.state == "open":
+            return (
+                self.opened_at is not None
+                and self._clock() - self.opened_at >= self.cooldown
+            )
+        return False  # half_open: the one probe is already outstanding
+
+    def acquire(self) -> None:
+        """An attempt is about to run here; claim the half-open probe slot
+        when the cooldown has elapsed."""
+        if self.state == "open" and self.ready():
+            self.state = "half_open"
+
+    def record_success(self) -> None:
+        self.consecutive_failures = 0
+        self.state = "closed"
+        self.opened_at = None
+
+    def record_failure(self) -> None:
+        self.failures += 1
+        self.consecutive_failures += 1
+        if (
+            self.state == "half_open"
+            or self.consecutive_failures >= self.threshold
+        ):
+            if self.state != "open":
+                self.trips += 1
+            self.state = "open"
+            self.opened_at = self._clock()
+
+
+class HealthSnapshot(NamedTuple):
+    """Read-only view of one worker's health, surfaced on results."""
+    state: str               # breaker state: closed | open | half_open
+    ewma: float | None       # EWMA attempt latency (None: never observed)
+    attempts: int            # completed attempts observed
+    failures: int            # total failures recorded
+    consecutive_failures: int
+    trips: int               # times the breaker opened
+
+
+class WorkerHealth:
+    """Per-worker health: EWMA latency + circuit breaker.
+
+    One per shard in ``search.resilient.resilient_search``, one per wrapped
+    executor in ``search.pipeline.HedgedExecutor``, one for the engine in
+    ``serve.supervisor.SearchSupervisor``.
+    """
+
+    def __init__(
+        self,
+        *,
+        threshold: float = 3.0,
+        alpha: float = 0.2,
+        breaker_threshold: int = 3,
+        breaker_cooldown: float = 1.0,
+        clock: Callable[[], float] = time.time,
+    ):
+        self.monitor = StragglerMonitor(threshold=threshold, alpha=alpha)
+        self.breaker = CircuitBreaker(
+            breaker_threshold, breaker_cooldown, clock
+        )
+        self.attempts = 0
+
+    @property
+    def ewma(self) -> float | None:
+        return self.monitor.ewma
+
+    def observe(self, dt: float) -> bool:
+        """A completed attempt took ``dt`` seconds (closes the breaker)."""
+        self.attempts += 1
+        flagged = self.monitor.observe(self.attempts - 1, dt)
+        self.breaker.record_success()
+        return flagged
+
+    def fail(self) -> None:
+        self.breaker.record_failure()
+
+    def ready(self) -> bool:
+        return self.breaker.ready()
+
+    def acquire(self) -> None:
+        self.breaker.acquire()
+
+    def snapshot(self) -> HealthSnapshot:
+        return HealthSnapshot(
+            state=self.breaker.state,
+            ewma=self.monitor.ewma,
+            attempts=self.attempts,
+            failures=self.breaker.failures,
+            consecutive_failures=self.breaker.consecutive_failures,
+            trips=self.breaker.trips,
+        )
+
+
+class DecorrelatedJitterBackoff:
+    """Retry sleeps with decorrelated jitter: ``uniform(base, 3 * prev)``.
+
+    Keeps the exponential envelope in expectation while simultaneously
+    failed workers do not retry in lockstep (Brooker, "Exponential Backoff
+    and Jitter"). Deterministic given its seed; ``seed=None`` reads
+    ``$REPRO_FAULT_SEED`` (default 0). ``reset()`` starts a fresh retry
+    sequence.
+    """
+
+    def __init__(
+        self,
+        base: float,
+        cap: float | None = None,
+        seed: int | None = None,
+    ):
+        if base < 0:
+            raise guards.SearchInputError("backoff base must be >= 0")
+        self.base = float(base)
+        self.cap = float(cap) if cap is not None else self.base * 16.0
+        if seed is None:
+            seed = int(os.environ.get("REPRO_FAULT_SEED", 0))
+        self._rng = np.random.default_rng(seed)
+        self._prev = self.base
+
+    def reset(self) -> None:
+        self._prev = self.base
+
+    def next(self) -> float:
+        if self.base == 0.0:
+            return 0.0
+        lo, hi = self.base, max(self._prev * 3.0, self.base)
+        self._prev = min(self.cap, float(self._rng.uniform(lo, hi)))
+        return self._prev
+
+
+class HedgeOutcome(NamedTuple):
+    """One hedged attempt's adjudication (all times in ``clock`` units)."""
+    launched: int        # backup attempts actually launched
+    won: bool            # a backup (virtually) finished before the primary
+    effective_dt: float  # min over completions of their virtual finish time
+    completions: tuple   # ((tag, result, backup_dt), ...) completed backups
+
+
+def hedge_race(
+    primary_dt: float,
+    delay: float,
+    backups,
+    *,
+    clock: Callable[[], float] = time.time,
+    max_inflight: int = 2,
+    on_failure: Callable[[Any, BaseException], None] | None = None,
+) -> HedgeOutcome:
+    """Race backup attempts against a primary that took ``primary_dt``.
+
+    The host runs attempts one after another, so the primary has already
+    completed when this runs; the race is replayed on the virtual timeline
+    a concurrent deployment would see: backup ``k`` (1-based) launches at
+    ``k * delay``, but only if nothing has virtually finished by then, runs
+    for its measured ``dt_k`` and finishes at ``k * delay + dt_k``.
+    ``effective_dt`` is the min finish time over the primary and every
+    completed backup; ``max_inflight`` caps the backups raced.
+
+    ``backups`` yields ``(tag, thunk)`` lazily, so the caller picks each
+    next-healthiest worker at launch time. A thunk's time is read around
+    the call, so a thunk that queues device work must wait for it before
+    it returns. A backup raising a transient error is reported to
+    ``on_failure`` and contributes nothing; guard errors re-raise.
+    """
+    launched = 0
+    best_eff = primary_dt
+    completions = []
+    for k, (tag, thunk) in enumerate(backups, start=1):
+        if launched >= max_inflight:
+            break
+        launch_t = k * delay
+        if best_eff <= launch_t:
+            break  # someone already (virtually) finished; no more hedges
+        launched += 1
+        t0 = clock()
+        try:
+            result = thunk()
+        except GUARD_ERRORS:
+            raise
+        except TRANSIENT as e:
+            if on_failure is not None:
+                on_failure(tag, e)
+            continue
+        dt_k = clock() - t0
+        completions.append((tag, result, dt_k))
+        best_eff = min(best_eff, launch_t + dt_k)
+    return HedgeOutcome(
+        launched=launched,
+        won=best_eff < primary_dt,
+        effective_dt=best_eff,
+        completions=tuple(completions),
+    )

@@ -1,10 +1,32 @@
 """Similarity search over a long reference series (port of ``repro.search``):
 the offline frontends (``subsequence``, ``multi``), the streaming ingest
-(``streaming``), the incumbent store and quarantine ledger
-(``incumbents``) and the window statistics (``znorm``).
+(``streaming``), the fault-tolerant range search (``resilient``) over the
+pipeline's executor seam (``pipeline.Executor``: host rounds, persistent
+sweep, hedged), the incumbent store and quarantine ledger
+(``incumbents``) and the window statistics (``znorm``). Sharded search
+(``ShardedExecutor``, ``distributed``) is not ported yet (ROADMAP.md
+Queue 1 item 5).
 """
-from repro_torch.search.incumbents import QuarantineLedger, fold_np
+from repro_torch.search.incumbents import (
+    IncumbentState,
+    QuarantineLedger,
+    fold_np,
+    merge_states,
+)
 from repro_torch.search.multi import MultiSearchResult, multi_query_search
+from repro_torch.search.pipeline import (
+    Executor,
+    HedgedExecutor,
+    HostRoundsExecutor,
+    PersistentExecutor,
+    RangeResult,
+    get_executor,
+)
+from repro_torch.search.resilient import (
+    CoverageError,
+    ResilientSearchResult,
+    resilient_search,
+)
 from repro_torch.search.streaming import (
     IngestResult,
     StreamIngestExecutor,
@@ -16,16 +38,27 @@ from repro_torch.search.subsequence import SearchResult, subsequence_search
 from repro_torch.search.znorm import append_window_stats
 
 __all__ = [
+    "CoverageError",
+    "Executor",
+    "HedgedExecutor",
+    "HostRoundsExecutor",
+    "IncumbentState",
     "IngestResult",
     "MultiSearchResult",
+    "PersistentExecutor",
     "QuarantineLedger",
+    "RangeResult",
+    "ResilientSearchResult",
     "SearchResult",
     "StreamIngestExecutor",
     "append_window_stats",
     "fold_np",
+    "get_executor",
     "ingest_chunk",
     "initial_incumbents",
+    "merge_states",
     "multi_query_search",
     "rescore_windows",
+    "resilient_search",
     "subsequence_search",
 ]

@@ -6,17 +6,16 @@ dispatch with a per-query incumbent vector (``rounds="host"``) or the whole
 best-first sweep in one launch (``rounds="persistent"``), each with the
 windows sliced in the kernel (``gather="fused"``) or gathered into a slab
 (``gather="slab"``); see ``search.pipeline``. The distributed
-variant is not ported yet (ROADMAP.md Queue 1 item 9).
+variant is not ported yet (ROADMAP.md Queue 1 item 5).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from repro_torch.core import guards
-from repro_torch.core.common import resolve_device
+from repro_torch.core.common import as_float32, resolve_device
 from repro_torch.search.pipeline import (
     MULTI_VARIANTS,
     _offline_search_impl,
@@ -35,13 +34,6 @@ class MultiSearchResult(NamedTuple):
     rows: torch.Tensor         # (Q,) DTW rows issued (-1: fast rounds)
     cells: torch.Tensor        # (Q,) admissible DTW cells (-1: fast rounds)
     quarantined: torch.Tensor  # windows excluded by the non-finite quarantine
-
-
-def as_float32(x, device: torch.device) -> torch.Tensor:
-    """``x`` (tensor or array-like) as a float32 tensor on ``device``."""
-    if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.float32)
-    return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
 
 
 def multi_query_search(

@@ -27,11 +27,22 @@ round (the round kernels check their lanes on the device). The persistent
 sweep makes one host sync, the out-of-range count of kernel C. The
 counters add up per query in int64 (``repro`` adds them in int32, which a
 query at N = 1e6, l = 1024 overflows); they are -1 when not collected.
+
+The executor seam (``Executor.run_range``) binds the offline core to one
+workload and searches any window-start range of it from carried
+incumbents: ``HostRoundsExecutor``, ``PersistentExecutor`` and
+``HedgedExecutor``, which races a straggling attempt on a backup and
+also wraps streaming ingest executors (``run_ingest``). The
+fault-tolerant layer (``search.resilient``) schedules on it.
+``repro``'s ``make_sharded_search`` and ``ShardedExecutor`` are not
+ported yet (ROADMAP.md Queue 1 item 5).
 """
 from __future__ import annotations
 
+import dataclasses
+import time
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import NamedTuple, Protocol
 
 import torch
 
@@ -44,12 +55,31 @@ from repro_torch.core.batch import (
     ea_pruned_dtw_persistent,
     ea_pruned_dtw_persistent_fused,
 )
-from repro_torch.core.common import BIG, DEAD_LANE_UB, pad_lanes_to_blocks
+from repro_torch.core.common import (
+    BIG,
+    DEAD_LANE_UB,
+    as_float32,
+    block_until_ready,
+    pad_lanes_to_blocks,
+    resolve_device,
+)
 from repro_torch.core.dtw import dtw_batch
 from repro_torch.core.lower_bounds import cascade_keogh_cumulative, envelope
 from repro_torch.core.pruned_dtw import pruned_dtw_batch
+from repro_torch.distributed.fault_tolerance import (
+    GUARD_ERRORS,
+    TRANSIENT,
+    StragglerMonitor,
+    WorkerHealth,
+    hedge_race,
+)
 from repro_torch.search.cascade import cascade_lower_bounds
-from repro_torch.search.incumbents import IncumbentState, fold_min, initial_state
+from repro_torch.search.incumbents import (
+    IncumbentState,
+    fold_min,
+    initial_state,
+    merge_states,
+)
 from repro_torch.search.znorm import (
     gather_norm_windows,
     sanitize_series,
@@ -676,3 +706,286 @@ def _baseline_search_impl(
     if with_info:
         return state, stats(r, r * batch, rows, cells), prep.n_quar
     return state, stats(r, r * batch), prep.n_quar
+
+
+# ---------------------------------------------------------------------------
+# Executor protocol — the range-execution seam
+# ---------------------------------------------------------------------------
+
+class RangeResult(NamedTuple):
+    """Outcome of one work range: folded incumbents + accounting."""
+    state: IncumbentState       # (Q,) incumbents, best in GLOBAL coordinates
+    stats: SearchStats
+    quarantined: torch.Tensor   # windows of this range excluded by §2.6
+
+
+class Executor(Protocol):
+    """``run_range(plan, state, lo, hi)``: search window starts [lo, hi).
+
+    The seam the fault-tolerant layer schedules on: an executor is bound to
+    one (reference, queries) workload at construction and searches any
+    window-start range of it against carried incumbents, returning results
+    in global window coordinates, as tensors on its device with the work
+    possibly still queued. Implementations: host rounds, persistent sweep.
+    """
+
+    def run_range(
+        self, plan: SearchPlan, state: IncumbentState, lo: int, hi: int
+    ) -> RangeResult:
+        ...
+
+
+class _OfflineRangeExecutor:
+    """Shared range logic for the host-rounds/persistent executors.
+
+    A range is searched as the offline core over its slice: windows
+    ``[lo, hi)`` live in ``ref[lo : hi + length - 1]``, the carried
+    incumbents ride in as warm ``ub_init`` seeds, and achieved starts map
+    back by ``+ lo``. The range's window stats come from its own slice, so
+    its distances may differ from a whole-reference search's in the last
+    float32 bits. ``device=None`` is the card (raises without one).
+    """
+
+    _rounds: str
+
+    def __init__(self, ref, queries, device=None):
+        self.device = resolve_device(device)
+        self.ref = as_float32(ref, self.device)
+        queries = as_float32(queries, self.device)
+        self.queries = queries[None] if queries.ndim == 1 else queries
+
+    def run_range(
+        self, plan: SearchPlan, state: IncumbentState, lo: int, hi: int
+    ) -> RangeResult:
+        plan = dataclasses.replace(plan, rounds=self._rounds)
+        seg = self.ref[lo : hi + plan.length - 1]
+        seed_ub = as_float32(state.ub, self.device)
+        res_state, stats, n_quar = _offline_search_impl(
+            seg, self.queries, seed_ub, plan, False,
+        )
+        best = torch.where(res_state.best >= 0, res_state.best + lo, -1)
+        # Seed-unbeaten queries keep their incoming start (the seed's
+        # achiever lives outside this range).
+        seed_best = torch.as_tensor(state.best, device=self.device)
+        best = torch.where(res_state.ub < seed_ub, best,
+                           seed_best.to(best.dtype))
+        return RangeResult(
+            state=IncumbentState(ub=res_state.ub, best=best),
+            stats=stats, quarantined=n_quar,
+        )
+
+
+class HostRoundsExecutor(_OfflineRangeExecutor):
+    """Best-first host-round dispatches over the range (the default):
+    kernel B once, then kernel A a round."""
+    _rounds = "host"
+
+
+class PersistentExecutor(_OfflineRangeExecutor):
+    """The range's whole best-first order in one launch (DESIGN.md §2.5):
+    kernel B once, then kernel C once."""
+    _rounds = "persistent"
+
+
+def get_executor(
+    plan: SearchPlan, ref, queries, *, mesh=None, axis_names=None,
+    device=None,
+) -> Executor:
+    """Bind the executor ``plan.rounds`` selects to one workload."""
+    if mesh is not None:
+        raise guards.SearchInputError(
+            "sharded execution (get_executor(mesh=...), ShardedExecutor) is "
+            "not ported yet; use the host-rounds or persistent executor"
+        )
+    if plan.rounds == "persistent":
+        return PersistentExecutor(ref, queries, device=device)
+    return HostRoundsExecutor(ref, queries, device=device)
+
+
+def _merge_range_results(a: RangeResult, b: RangeResult) -> RangeResult:
+    """Fold a duplicate completion into the primary's (idempotent).
+
+    Incumbents merge under strict improvement; stats and the quarantine
+    count stay the primary's — both attempts scanned the same windows, so
+    counting the backup's quarantined windows again would double-count.
+    """
+    return a._replace(state=merge_states(a.state, b.state))
+
+
+def _merge_ingest_results(a, b):
+    """Same rule for ``run_ingest``'s ``(new_tail, IngestResult)`` pairs."""
+    tail_a, res_a = a
+    _tail_b, res_b = b
+    merged = merge_states(
+        IncumbentState(ub=res_a.ub, best=res_a.best),
+        IncumbentState(ub=res_b.ub, best=res_b.best),
+    )
+    return tail_a, res_a._replace(ub=merged.ub, best=merged.best)
+
+
+class HedgedExecutor:
+    """Race a straggling attempt on the next-healthiest wrapped executor.
+
+    Wraps N executors behind the same seam (``run_range``, and
+    ``run_ingest`` when the wrapped executors are streaming ingest
+    executors). Every attempt runs on the healthiest available executor;
+    when it takes longer than the hedge delay — explicit ``hedge_delay``,
+    or derived as ``threshold × EWMA`` of the fleet's attempt latency —
+    the same work is raced on up to ``hedge_max_inflight`` backups and the
+    race is adjudicated on the virtual timeline
+    (``fault_tolerance.hedge_race``). Duplicate completions merge through
+    the strict-improvement fold (``incumbents.merge_states``), so a hedge
+    can never change the answer — only the latency.
+
+    An attempt's time includes its device work: the result's device is
+    synchronized before the clock is read again (one sync an attempt).
+
+    Health: one ``WorkerHealth`` (EWMA + circuit breaker) per wrapped
+    executor. Routing prefers breaker-ready executors that are not
+    straggling (EWMA ≤ ``threshold ×`` the fleet EWMA), in index order. A
+    transient failure of the *primary* attempt records breaker state and
+    re-raises: retry policy belongs to the layer above
+    (``resilient_search``, the supervisor). Backup failures are absorbed.
+
+    Counters: ``hedges_launched`` / ``hedges_won`` (a backup virtually
+    finished first) / ``last_effective_dt`` (the latency a client of the
+    race would have seen). ``clock`` is injectable; with a fake clock every
+    race is deterministic.
+    """
+
+    def __init__(
+        self,
+        executors,
+        *,
+        hedge_delay: float | None = None,
+        hedge_max_inflight: int = 2,
+        threshold: float = 3.0,
+        alpha: float = 0.2,
+        breaker_threshold: int = 3,
+        breaker_cooldown: float = 1.0,
+        clock=time.time,
+    ):
+        self._executors = tuple(executors)
+        if not self._executors:
+            raise guards.SearchInputError(
+                "HedgedExecutor needs at least one executor"
+            )
+        if hedge_max_inflight < 1:
+            raise guards.SearchInputError("hedge_max_inflight must be >= 1")
+        self.hedge_delay = hedge_delay
+        self.hedge_max_inflight = int(hedge_max_inflight)
+        self._clock = clock
+        self.monitor = StragglerMonitor(threshold=threshold, alpha=alpha)
+        self.health = tuple(
+            WorkerHealth(
+                threshold=threshold, alpha=alpha,
+                breaker_threshold=breaker_threshold,
+                breaker_cooldown=breaker_cooldown, clock=clock,
+            )
+            for _ in self._executors
+        )
+        self.hedges_launched = 0
+        self.hedges_won = 0
+        self.last_effective_dt: float | None = None
+        self._steps = 0
+
+    # -- routing ----------------------------------------------------------
+    def _order(self) -> list[int]:
+        """Executor indices, healthiest first: breaker-ready before open,
+        non-straggling before straggling, index order as the tiebreak."""
+        fleet = self.monitor.ewma
+
+        def key(i: int):
+            h = self.health[i]
+            slow = (
+                h.ewma is not None
+                and fleet is not None
+                and h.ewma > self.monitor.threshold * fleet
+            )
+            return (0 if h.ready() else 1, 1 if slow else 0, i)
+
+        return sorted(range(len(self._executors)), key=key)
+
+    def _delay(self) -> float | None:
+        if self.hedge_delay is not None:
+            return self.hedge_delay
+        if self.monitor.ewma is None:
+            return None  # no baseline yet: never hedge the first attempt
+        return self.monitor.threshold * self.monitor.ewma
+
+    def health_snapshots(self) -> tuple:
+        return tuple(h.snapshot() for h in self.health)
+
+    # -- the race ---------------------------------------------------------
+    def _call(self, i: int, method: str, args, kwargs):
+        """One attempt on executor ``i``, waited for on its device."""
+        out = getattr(self._executors[i], method)(*args, **kwargs)
+        return block_until_ready(out)
+
+    def _attempt(self, method: str, args, kwargs, merge):
+        primary = self._order()[0]
+        self.health[primary].acquire()
+        t0 = self._clock()
+        try:
+            result = self._call(primary, method, args, kwargs)
+        except GUARD_ERRORS:
+            raise
+        except TRANSIENT:
+            self.health[primary].fail()
+            raise
+        dt_p = self._clock() - t0
+        delay = self._delay()  # pre-observe: the baseline excludes this dt
+        self.health[primary].observe(dt_p)
+        effective = dt_p
+        if delay is not None and dt_p > delay and len(self._executors) > 1:
+            used = {primary}
+
+            def backups():
+                while True:
+                    cands = [
+                        i for i in self._order()
+                        if i not in used and self.health[i].ready()
+                    ]
+                    if not cands:
+                        return
+                    i = cands[0]
+                    used.add(i)
+
+                    def thunk(i=i):
+                        self.health[i].acquire()
+                        return self._call(i, method, args, kwargs)
+
+                    yield i, thunk
+
+            race = hedge_race(
+                dt_p, delay, backups(), clock=self._clock,
+                max_inflight=self.hedge_max_inflight,
+                on_failure=lambda tag, _e: self.health[tag].fail(),
+            )
+            self.hedges_launched += race.launched
+            if race.won:
+                self.hedges_won += 1
+            for tag, res_b, dt_b in race.completions:
+                self.health[tag].observe(dt_b)
+                result = merge(result, res_b)
+            effective = race.effective_dt
+        self.monitor.observe(self._steps, effective)
+        self._steps += 1
+        self.last_effective_dt = effective
+        return result
+
+    # -- the seam ---------------------------------------------------------
+    def run_range(
+        self, plan: SearchPlan, state: IncumbentState, lo: int, hi: int
+    ) -> RangeResult:
+        return self._attempt(
+            "run_range", (plan, state, lo, hi), {}, _merge_range_results
+        )
+
+    def run_ingest(self, *args, **kwargs):
+        """Forward one streaming ingest through the race (duck-typed: the
+        wrapped executors must expose ``run_ingest``, e.g.
+        ``search.streaming.StreamIngestExecutor``)."""
+        return self._attempt(
+            "run_ingest", args, kwargs, _merge_ingest_results
+        )

@@ -295,8 +295,8 @@ class StreamIngestExecutor:
     bind once at construction, and each ``run_ingest`` call advances one
     chunk of carried state. ``serve.stream.StreamSearchEngine`` can be
     pointed at any object with this method (a hedged executor wrapping
-    several of these, once the host layer is ported). ``run_ingest`` is a
-    pure function of its arguments: all carried state rides in
+    several of these: ``search.pipeline.HedgedExecutor``). ``run_ingest``
+    is a pure function of its arguments: all carried state rides in
     ``tail``/``ub``/``best``/``offset``, so a duplicate call is safe.
     """
 

@@ -1,0 +1,197 @@
+"""Atomic, async-capable checkpoints (port of ``repro/train/checkpoint.py``).
+
+Layout, the same as ``repro``'s so that either package resumes the other's
+directories: ``<dir>/step_<N:08d>/`` holds one ``.npy`` per leaf, named by
+its key path (dict keys sorted, sequence items by index, the parts joined
+with ``.``), and ``manifest.json`` (the step and the leaf index). Commit
+protocol: write into ``step_<N>.tmp``, then ``rename``; a half-written
+checkpoint is never visible.
+
+A tree is nested dicts, lists and tuples whose leaves are numpy arrays,
+tensors (any device) or scalars; ``None`` holds no leaf. ``restore``
+returns numpy arrays in the template leaf's dtype.
+
+``AsyncCheckpointer`` writes on a worker thread. ``submit`` copies every
+leaf on the caller's thread first (``repro`` takes its snapshot with
+``jax.device_get``): ``.cpu()`` for a tensor on a card, a numpy copy for
+the rest, since a CPU tensor's ``.numpy()`` shares its memory. The worker
+touches numpy only, never CUDA.
+"""
+from __future__ import annotations
+
+import json
+import os
+import queue
+import re
+import shutil
+import threading
+
+import numpy as np
+import torch
+
+
+def _map(fn, tree, path=()):
+    """``tree`` with each leaf replaced by ``fn(name, leaf)``, ``name`` its
+    key path as ``repro`` names it; dicts come back in sorted key order,
+    as ``jax.tree_util`` rebuilds them."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _map(fn, tree[k], path + (str(k),)) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        items = [_map(fn, v, path + (str(i),)) for i, v in enumerate(tree)]
+        if isinstance(tree, list):
+            return items
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return fn("/".join(path).replace("/", "."), tree)
+
+
+def _flatten(tree) -> list:
+    """``[(name, leaf), ...]`` in ``repro``'s order and naming."""
+    named = []
+    _map(lambda name, leaf: named.append((name, leaf)), tree)
+    return named
+
+
+def _to_host(leaf, copy: bool = False) -> np.ndarray:
+    """A leaf as a numpy array; ``copy`` makes it independent of ``leaf``."""
+    if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach()
+        if leaf.device.type != "cpu":
+            return leaf.cpu().numpy()  # the copy to the host is fresh memory
+        arr = leaf.numpy()
+        return arr.copy() if copy else arr
+    return np.array(leaf, copy=True) if copy else np.asarray(leaf)
+
+
+def _np_dtype(leaf) -> np.dtype:
+    if isinstance(leaf, torch.Tensor):
+        return torch.empty((), dtype=leaf.dtype).numpy().dtype
+    return np.asarray(leaf).dtype
+
+
+def save(ckpt_dir: str, tree, step: int) -> str:
+    """Synchronous atomic checkpoint. Returns the committed directory."""
+    named = _flatten(tree)
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    tmp = final + ".tmp"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp, exist_ok=True)
+    manifest = {"step": step, "leaves": []}
+    for name, leaf in named:
+        fname = f"{name}.npy"
+        np.save(os.path.join(tmp, fname), _to_host(leaf))
+        manifest["leaves"].append({"name": name, "file": fname})
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    return final
+
+
+def steps(ckpt_dir: str) -> list[int]:
+    """All committed checkpoint steps under ``ckpt_dir``, ascending.
+
+    Only fully renamed ``step_<N>`` directories appear, but a committed
+    checkpoint can still be damaged after the fact (disk fault, partial
+    copy): callers that must survive that walk this list newest-first and
+    fall back on a failed restore (``serve.supervisor.SearchSupervisor``).
+    """
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return sorted(
+        int(m.group(1))
+        for d in os.listdir(ckpt_dir)
+        if (m := re.fullmatch(r"step_(\d+)", d))
+    )
+
+
+def latest_step(ckpt_dir: str) -> int | None:
+    all_steps = steps(ckpt_dir)
+    return all_steps[-1] if all_steps else None
+
+
+def restore(ckpt_dir: str, template, step: int | None = None):
+    """Restore into the structure of ``template``; returns ``(tree, step)``
+    with numpy leaves in the template leaves' dtypes."""
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    d = os.path.join(ckpt_dir, f"step_{step:08d}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        manifest = json.load(f)
+    by_name = {e["name"]: e["file"] for e in manifest["leaves"]}
+
+    def load(name, leaf):
+        return np.asarray(np.load(os.path.join(d, by_name[name])),
+                          dtype=_np_dtype(leaf))
+
+    return _map(load, template), step
+
+
+def prune_old(ckpt_dir: str, keep: int = 3) -> None:
+    for s in steps(ckpt_dir)[:-keep]:
+        shutil.rmtree(os.path.join(ckpt_dir, f"step_{s:08d}"),
+                      ignore_errors=True)
+
+
+class AsyncCheckpointer:
+    """Off-thread checkpoint writer with a bounded queue (backpressure).
+
+    ``wait()`` is the write barrier: it blocks until every submitted
+    checkpoint is committed (or has recorded its error). Supervisors call it
+    before any restore or rollback, so replay never races an in-flight
+    write.
+
+    ``write_hook`` is a test injection point: when set, it is called with
+    ``(tree, step)`` on the worker thread just before the atomic ``save``
+    (a sleeping hook widens the in-flight window).
+    """
+
+    def __init__(self, ckpt_dir: str, keep: int = 3, write_hook=None):
+        self.ckpt_dir = ckpt_dir
+        self.keep = keep
+        self._write_hook = write_hook
+        self._q: queue.Queue = queue.Queue(maxsize=2)
+        self._err: Exception | None = None
+        self._worker = threading.Thread(target=self._run, daemon=True)
+        self._worker.start()
+
+    def _run(self):
+        while True:
+            item = self._q.get()
+            try:
+                if item is None:
+                    return
+                tree, step = item
+                try:
+                    if self._write_hook is not None:
+                        self._write_hook(tree, step)
+                    save(self.ckpt_dir, tree, step)
+                    prune_old(self.ckpt_dir, self.keep)
+                except Exception as e:  # surfaced on next submit/wait/close
+                    self._err = e
+            finally:
+                self._q.task_done()
+
+    def submit(self, tree, step: int) -> None:
+        if self._err:
+            raise self._err
+        # A consistent snapshot, copied on this thread.
+        snapshot = _map(lambda _name, leaf: _to_host(leaf, copy=True), tree)
+        self._q.put((snapshot, int(step)))
+
+    def wait(self) -> None:
+        """Barrier: block until every submitted checkpoint is on disk."""
+        self._q.join()
+        if self._err:
+            raise self._err
+
+    def close(self) -> None:
+        self._q.put(None)
+        self._worker.join()
+        if self._err:
+            raise self._err
