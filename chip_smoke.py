@@ -94,7 +94,20 @@ Drives ``repro_torch`` (never JAX, never ``repro``) on ``cuda:0``:
      arm (a)'s bits (``ub``, ``best``, rounds, lanes); (f) the default
      engine over a ``HedgedExecutor`` of two ingest executors, the first
      straggling on ``RES_SLOW_INGESTS``: arm (a)'s bits, A launched arm
-     (a)'s rounds plus the backups';
+     (a)'s rounds plus the backups'. Then sharded search ("phase 4
+     sharded", on ``torch.distributed``): (a) a group of one on NCCL in
+     this process, ``make_distributed_multi_search`` with
+     ``gather="fused"`` (kernels B and A) and ``"slab"`` (B and D), each
+     holding the host rounds' (fused or slab) ``best_start`` and
+     ``best_dist`` bits and rounds, B launched once and A (or D) once a
+     round; (b) a gloo group of ``SHARD_WORLD`` spawned ranks (this script
+     with ``--shard``), all on the one card, fused: every rank the same
+     answer and launches, the offline winners or a proven near tie (two
+     processes share one card, so its wall says nothing of scaling); (c)
+     ``resilient_search`` in ``RES_RANGES`` ranges over a
+     ``ShardedExecutor`` of the group of one: coverage 1, one program for
+     every range, B once a range, A the ranges' rounds, the offline
+     winners or a near tie;
   5. the same search at N = 50,000, l = 256, w = 25, Q = 4 on the card and
      with ``device="cpu"``, for both drivers and both EA variants;
      then the paper's four suites (``full``, ``pruned``, ``eapruned``,
@@ -121,11 +134,13 @@ Drives ``repro_torch`` (never JAX, never ``repro``) on ``cuda:0``:
      kernel A's time;
   7. a ``{"stream": {...}}`` line of the streaming arms' numbers, a
      ``{"resilient": {...}}`` line of the host layer's arms, a
+     ``{"sharded": {...}}`` line of the sharded arms, a
      ``{"kernels": [...]}`` line (``launches`` on the offline path that runs
      each kernel, ``stream_launches`` in streaming arm (a) for A and B and
      arm (c) for D, ``resilient_launches`` in arm (a) of phase 4 resilient
-     for A and B and arm (b) for C); the last line is ``{"ok": true,
-     "device": {...}}``.
+     for A and B and arm (b) for C, ``sharded_launches`` in phase 4
+     sharded's arm (a), fused for A and B and slab for D); the last line is
+     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 It exits non-zero at once when ``torch.cuda.is_available()`` is false, and
@@ -134,6 +149,7 @@ fails on import when ``src/repro_torch`` is not beside it.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import re
 import subprocess
@@ -185,6 +201,17 @@ RES_CKPT_EVERY = 8
 RES_FAULT_ARRIVALS = (5, 20)
 RES_KILL_AFTER = 30
 RES_SLOW_INGESTS = (10, 60, 120)
+# Sharded search (phase 4 sharded): arms (a) and (c) run a group of one on
+# SHARD_BACKEND in this process; arm (b) runs SHARD_WORLD spawned ranks of a
+# gloo group on the one card (NCCL refuses two ranks on one device), each
+# warmed up on the first SHARD_WARM_N samples and given SHARD_TIMEOUT
+# seconds; arm (a) also times SHARD_COLL_REPS of the round loop's
+# collectives alone.
+SHARD_BACKEND = "nccl"
+SHARD_COLL_REPS = 1000
+SHARD_WORLD = 2
+SHARD_WARM_N = 100_000
+SHARD_TIMEOUT = 300
 # Phase 3 holds the counter variants of kernels A and D against the plain
 # version run on each round's lanes followed by COUNT_COPIES copies of them
 # under ub = BIG (which never abandon): 65 x 2,048 = 133,120 rows, more
@@ -1054,7 +1081,9 @@ def phase_slab_arms(torch, cfg, ref, queries, host: dict, sweep: dict) -> dict:
           "the slab host rounds must run kernel D and not kernel A")
     check(res.best_start.tolist() == host["res"].best_start.tolist(),
           "host rounds: gather=slab and gather=fused differ")
-    out = {"dtw_ea_multi": launches["dtw_ea_multi"], "host_slab_wall_s": wall}
+    out = {"dtw_ea_multi": launches["dtw_ea_multi"], "host_slab_wall_s": wall,
+           "host_slab": {"best_start": res.best_start,
+                         "best_dist": res.best_dist, "rounds": res.rounds}}
     del res
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1845,6 +1874,224 @@ def phase_resilient(torch, cfg, ref, queries, host: dict, sweep: dict,
             "b": arms["(b) persistent"]["launches"]}
 
 
+def phase_sharded(torch, cfg, ref, queries, host: dict, slab: dict) -> dict:
+    """Sharded search at the main path's shapes, arms (a)-(c) of the module
+    docstring."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.search import (
+        ShardedExecutor,
+        make_distributed_multi_search,
+    )
+    from repro_torch.search.resilient import executor_runner
+
+    offline, l, nq = host["res"], cfg.query_len, cfg.n_queries
+    tiles = len(ops.lb_query_tiles(nq, l))
+    plan = cfg.make_plan()
+    arms, ties = {}, {}
+    say(f"[4 sharded] N={cfg.ref_len} l={l} w={cfg.window} Q={nq} "
+        f"batch={cfg.batch}; (a), (c) on {SHARD_BACKEND}, (b) on gloo")
+
+    # (a) a group of one, in this process: the host rounds' lockstep.
+    dist.init_process_group(SHARD_BACKEND, store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        for gather, want, kernel in (
+                ("fused", offline, "dtw_ea_multi_fused"),
+                ("slab", types.SimpleNamespace(**slab["host_slab"]),
+                 "dtw_ea_multi")):
+            fn = make_distributed_multi_search(
+                None, None, l, cfg.window, batch=cfg.batch,
+                block_k=cfg.block_k, gather=gather, device=DEVICE)
+            zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(ref, queries)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launches_now()
+            rounds = int(res.rounds)
+            bits = (torch.equal(res.best_start, want.best_start)
+                    and torch.equal(res.best_dist, want.best_dist))
+            label = f"(a) group of one, {gather}"
+            say(f"  {label}: {wall:.3f} s wall (host rounds {gather} "
+                f"{host['wall_s'] if gather == 'fused' else slab['host_slab_wall_s']:.3f} s); "
+                f"rounds {rounds} (host rounds {int(want.rounds.max())}); "
+                f"quarantined {int(res.quarantined)}; launches {launches}; "
+                f"best_start {res.best_start.tolist()}; best_start and "
+                f"best_dist the host rounds' bits: {bits}")
+            want_launches = {k: 0 for k in KERNELS}
+            want_launches.update({kernel: rounds,
+                                  "lb_keogh_all_windows": tiles})
+            check(launches == want_launches,
+                  f"{label}: launches {launches}, expected {want_launches}")
+            check(bits and rounds == int(want.rounds.max())
+                  and int(res.quarantined) == int(offline.quarantined),
+                  f"{label}: not the host rounds' bits and rounds")
+            arms[label] = dict(wall_s=wall, rounds=rounds,
+                               launches={k: v for k, v in launches.items()
+                                         if v})
+
+        # What the loop's collectives cost a round on the group of one: its
+        # two all_reduces and its host read, alone, against the read alone.
+        ub_t = torch.zeros(nq, device=DEVICE)
+        flag = torch.zeros((), dtype=torch.int32, device=DEVICE)
+
+        def rounds_of(collectives: bool):
+            def run():
+                for _ in range(SHARD_COLL_REPS):
+                    if collectives:
+                        dist.all_reduce(ub_t, op=dist.ReduceOp.MIN)
+                        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+                    bool(flag)
+            return host_ms(run) / SHARD_COLL_REPS
+
+        coll_ms, read_ms = rounds_of(True), rounds_of(False)
+        fused = arms["(a) group of one, fused"]
+        fused.update(coll_ms_per_round=coll_ms, read_ms_per_round=read_ms)
+        say(f"  (a) the loop's two all_reduces and host read, alone: "
+            f"{coll_ms:.4f} ms a round (the host read alone {read_ms:.4f} "
+            f"ms; mean of {SHARD_COLL_REPS}); fused wall less the host "
+            f"rounds' {(fused['wall_s'] - host['wall_s']) * 1e3 / fused['rounds']:.4f}"
+            f" ms a round")
+
+        # (c) resilient_search over a ShardedExecutor of the group of one.
+        recs = []
+        ex = recorded(ShardedExecutor, recs)(None, None, ref, queries,
+                                             device=DEVICE)
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res_c = cfg.resilient_search(ref, queries, device=DEVICE,
+                                     n_ranges=RES_RANGES,
+                                     runner=executor_runner(ex, plan))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launches_now()
+        rounds = sum(r["rounds"] for r in recs)
+        say(f"  (c) resilient_search over a ShardedExecutor, {RES_RANGES} "
+            f"ranges: {wall:.3f} s wall; {res_c.attempts} attempts, "
+            f"coverage {res_c.coverage}; rounds {rounds} (a range's: "
+            f"{[r['rounds'] for r in recs]}); a range "
+            f"{[round(r['ms'], 1) for r in recs]} ms; quarantined "
+            f"{res_c.quarantined}")
+        check(res_c.coverage == 1.0 and res_c.attempts == RES_RANGES
+              == len(recs) and len(ex._fns) == 1,
+              "(c): the ranges were not each run once by one program")
+        check(res_c.quarantined == int(offline.quarantined),
+              "(c): quarantine differs from offline")
+        check_launches("(c)", launches, a=rounds, b=tiles * RES_RANGES)
+        check_winners(torch, "(c)", res_c.best_start, res_c.best_dist,
+                      offline, ref, queries, cfg, ties)
+        arms["(c) resilient over ShardedExecutor"] = dict(
+            wall_s=wall, rounds=rounds, range_ms=[r["ms"] for r in recs],
+            launches={k: v for k, v in launches.items() if v})
+    finally:
+        dist.destroy_process_group()
+
+    # (b) a gloo group of SHARD_WORLD spawned ranks, all on this card.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shard_") as d:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--shard",
+             json.dumps({"rank": r, "world": SHARD_WORLD,
+                         "store": str(Path(d) / "store"), "device": DEVICE,
+                         "cfg": dataclasses.asdict(cfg)})],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(SHARD_WORLD)]
+        outs = []
+        try:
+            for r, p in enumerate(procs):
+                out, err = p.communicate(timeout=SHARD_TIMEOUT)
+                check(p.returncode == 0, f"(b): rank {r} failed "
+                      f"(exit {p.returncode}): {err[-3000:]}")
+                outs.append(json.loads(
+                    [x for x in out.splitlines()
+                     if x.startswith("SHARD ")][-1][len("SHARD "):]))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall_all = time.perf_counter() - t0
+    label = f"(b) group of {SHARD_WORLD}, gloo, one card"
+    for r, o in enumerate(outs):
+        say(f"  {label}, rank {r}: {o['wall_s']:.3f} s wall; rounds "
+            f"{o['rounds']}; launches {o['launches']}; shard "
+            f"[{o['lo']}, {o['hi']}), quarantined {o['quarantined']}")
+        check(o["launches"]["lb_keogh_all_windows"] == tiles
+              and o["launches"]["dtw_ea_multi_fused"] >= o["rounds"] > 0,
+              f"{label}, rank {r}: kernels A and B not launched as expected")
+    check(all(o["best_start"] == outs[0]["best_start"]
+              and o["best_dist"] == outs[0]["best_dist"]
+              and o["rounds"] == outs[0]["rounds"]
+              and o["launches"] == outs[0]["launches"] for o in outs),
+          f"{label}: the ranks disagree (lockstep: the same launches too)")
+    check(outs[0]["quarantined"] == int(offline.quarantined),
+          f"{label}: quarantine differs from offline")
+    bd = torch.tensor(outs[0]["best_dist"], dtype=torch.float32)
+    say(f"  {label}: {wall_all:.3f} s from spawn to the last exit; "
+        f"best_dist the host rounds' bits: "
+        f"{torch.equal(bd, offline.best_dist.cpu())}")
+    check_winners(torch, label, outs[0]["best_start"], bd, offline, ref,
+                  queries, cfg, ties)
+    arms[label] = dict(
+        wall_s=max(o["wall_s"] for o in outs), wall_spawn_s=wall_all,
+        rounds=outs[0]["rounds"],
+        launches=[{k: v for k, v in o["launches"].items() if v}
+                  for o in outs])
+    arms["near_ties"] = ties
+    say(f"  queries that needed the near-tie rule: {ties or 'none'}")
+    return {"arms": arms,
+            "a": arms["(a) group of one, fused"]["launches"],
+            "a_slab": arms["(a) group of one, slab"]["launches"]}
+
+
+def shard_worker(job: dict) -> int:
+    """One rank of phase 4 sharded arm (b): ``job`` gives its ``rank`` of
+    ``world``, the gloo group's file ``store``, the ``device`` and the
+    parent's ``SearchConfig`` fields (``cfg``). It searches the main path's
+    data (after a warm-up on its first ``SHARD_WARM_N`` samples) with its
+    launches counted from 0, and prints one ``SHARD <json>`` line."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.dtw_search import SearchConfig
+    from repro_torch.search import make_distributed_multi_search
+
+    rank, world, dev = job["rank"], job["world"], torch.device(job["device"])
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    cfg = SearchConfig(**job["cfg"])
+    ref, queries = main_path_inputs(torch, cfg, dev)
+    dist.init_process_group("gloo", init_method=f"file://{job['store']}",
+                            rank=rank, world_size=world)
+    try:
+        fn = make_distributed_multi_search(
+            None, None, cfg.query_len, cfg.window, batch=cfg.batch,
+            block_k=cfg.block_k, device=dev)
+        fn(ref[:SHARD_WARM_N], queries)
+        zero_launches()
+        sync()
+        dist.barrier()
+        t0 = time.perf_counter()
+        res = fn(ref, queries)
+        sync()
+        wall = time.perf_counter() - t0
+        n_win = cfg.ref_len - cfg.query_len + 1
+        per = -(-n_win // world)
+        print("SHARD " + json.dumps({
+            "rank": rank, "wall_s": wall, "rounds": int(res.rounds),
+            "best_start": res.best_start.tolist(),
+            "best_dist": res.best_dist.tolist(),
+            "quarantined": int(res.quarantined), "launches": launches_now(),
+            "lo": rank * per, "hi": min((rank + 1) * per, n_win)}),
+            flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def phase_stream_cross(torch, cfg) -> None:
     """A stream on the card against the same stream on the CPU, then
     ``ea_search_round`` and the full-row ``ea_pruned_dtw``."""
@@ -2288,6 +2535,8 @@ def main() -> int:
     workdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     resil = timed("phase 4 resilient", phase_resilient, torch, cfg, ref,
                   queries, host, sweep, stream, workdir)
+    shard = timed("phase 4 sharded", phase_sharded, torch, cfg, ref, queries,
+                  host, slab)
     timed("phase 5", phase_cross_check, torch)
     timed("phase 5 baselines", phase_baselines, torch, cfg)
     timed("phase 5 stream cross-check", phase_stream_cross, torch, cfg)
@@ -2305,13 +2554,19 @@ def main() -> int:
     resil_launches = dict(resil["a"])
     resil_launches["dtw_ea_persistent_fused"] = resil["b"].get(
         "dtw_ea_persistent_fused", 0)
+    # The sharded path's: the group of one (a), fused for A and B, slab
+    # for D.
+    shard_launches = dict(shard["a"], dtw_ea_multi=shard["a_slab"].get(
+        "dtw_ea_multi", 0))
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["stream_launches"] = stream_launches[k["name"]]
         k["resilient_launches"] = resil_launches.get(k["name"], 0)
+        k["sharded_launches"] = shard_launches.get(k["name"], 0)
     say(f"total {time.perf_counter() - t_all:.2f} s")
     say(json.dumps({"stream": stream["arms"]}))
     say(json.dumps({"resilient": resil["arms"]}))
+    say(json.dumps({"sharded": shard["arms"]}))
     say(json.dumps({"kernels": kernels}))
     say(card["smi"])
     say(json.dumps({"ok": True, "device": {
@@ -2320,4 +2575,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--shard"]:
+        sys.exit(shard_worker(json.loads(sys.argv[2])))
     sys.exit(main())

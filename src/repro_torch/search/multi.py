@@ -5,8 +5,9 @@ launch for all Q queries, then either one ``(Q × batch)``-lane round per
 dispatch with a per-query incumbent vector (``rounds="host"``) or the whole
 best-first sweep in one launch (``rounds="persistent"``), each with the
 windows sliced in the kernel (``gather="fused"``) or gathered into a slab
-(``gather="slab"``); see ``search.pipeline``. The distributed
-variant is not ported yet (ROADMAP.md Queue 1 item 5).
+(``gather="slab"``); see ``search.pipeline``.
+``make_distributed_multi_search`` runs the same queries sharded over the
+ranks of a ``torch.distributed`` group (``pipeline.make_sharded_search``).
 """
 from __future__ import annotations
 
@@ -20,9 +21,16 @@ from repro_torch.search.pipeline import (
     MULTI_VARIANTS,
     _offline_search_impl,
     make_plan,
+    make_sharded_search,
 )
 
-__all__ = ["MULTI_VARIANTS", "MultiSearchResult", "multi_query_search"]
+__all__ = [
+    "MULTI_VARIANTS",
+    "DistMultiSearchResult",
+    "MultiSearchResult",
+    "make_distributed_multi_search",
+    "multi_query_search",
+]
 
 
 class MultiSearchResult(NamedTuple):
@@ -34,6 +42,15 @@ class MultiSearchResult(NamedTuple):
     rows: torch.Tensor         # (Q,) DTW rows issued (-1: fast rounds)
     cells: torch.Tensor        # (Q,) admissible DTW cells (-1: fast rounds)
     quarantined: torch.Tensor  # windows excluded by the non-finite quarantine
+
+
+class DistMultiSearchResult(NamedTuple):
+    best_start: torch.Tensor   # (Q,)
+    best_dist: torch.Tensor    # (Q,)
+    rounds: torch.Tensor       # the most rounds any shard spent
+    quarantined: torch.Tensor  # windows excluded by the non-finite quarantine
+    #   (a scalar: windows are query-independent; the sum over the shards
+    #   equals the single-device count)
 
 
 def multi_query_search(
@@ -101,3 +118,51 @@ def multi_query_search(
         cells=stats.cells,
         quarantined=n_quar,
     )
+
+
+def make_distributed_multi_search(
+    mesh,
+    axis_names: tuple[str, ...] | None,
+    length: int,
+    window: int,
+    batch: int = 64,
+    band_width: int | None = None,
+    chunk: int = 2048,
+    rows_per_step: int = 1,
+    block_k: int = 8,
+    row_block: int = 128,
+    quarantine: bool = True,
+    gather: str = "fused",
+    slab_budget: int | None = None,
+    device=None,
+):
+    """Build a distributed multi-query search fn for a mesh config.
+
+    Arguments as ``repro``'s (without ``backend``), with ``mesh`` a process
+    group (``None``: the default group) or a ``DeviceMesh`` and ``device``
+    the rank's device (the card by default). Every rank calls
+    ``search_fn(ref, queries) -> DistMultiSearchResult`` with the same
+    arguments and gets the same per-query ``(Q,)`` results: the sharded
+    program of ``pipeline.make_sharded_search``, each rank a contiguous
+    range of every query's windows, the ``(Q,)`` incumbents reconciled by
+    one ``all_reduce(MIN)`` a round; a rank whose query finished early
+    submits dead lanes for it. ``gather="slab"`` runs kernel D a round in
+    place of kernel A.
+    """
+    plan = make_plan(
+        length=length, window=window, variant="eapruned", batch=batch,
+        band_width=band_width, chunk=chunk, rows_per_step=rows_per_step,
+        block_k=block_k, row_block=row_block, quarantine=quarantine,
+        gather=gather, slab_budget=slab_budget,
+        allowed_variants=MULTI_VARIANTS,
+    )
+    sharded = make_sharded_search(mesh, axis_names, plan, device=device)
+
+    def search_fn(ref, queries) -> DistMultiSearchResult:
+        best_d, best_s, rounds, n_quar = sharded(ref, queries)
+        return DistMultiSearchResult(
+            best_start=best_s, best_dist=best_d, rounds=rounds,
+            quarantined=n_quar,
+        )
+
+    return search_fn

@@ -34,8 +34,12 @@ incumbents: ``HostRoundsExecutor``, ``PersistentExecutor`` and
 ``HedgedExecutor``, which races a straggling attempt on a backup and
 also wraps streaming ingest executors (``run_ingest``). The
 fault-tolerant layer (``search.resilient``) schedules on it.
-``repro``'s ``make_sharded_search`` and ``ShardedExecutor`` are not
-ported yet (ROADMAP.md Queue 1 item 5).
+
+Sharded search (``make_sharded_search``, ``ShardedExecutor``) runs one
+shard a rank of a ``torch.distributed`` group: ``repro``'s per-axis
+``lax.pmin`` / ``pmax`` / ``psum`` are ``all_reduce``s with ``MIN`` /
+``MAX`` / ``SUM``, and its ``lax.while_loop`` a Python loop that reads
+the reduced continue flag once a round.
 """
 from __future__ import annotations
 
@@ -709,6 +713,151 @@ def _baseline_search_impl(
 
 
 # ---------------------------------------------------------------------------
+# sharded executor (torch.distributed: one rank a shard, all-reduce MIN)
+# ---------------------------------------------------------------------------
+
+def _shard_layout(mesh, axis_names) -> tuple[list, int, int]:
+    """``(groups, n_shards, shard)`` of a mesh config.
+
+    ``mesh`` is a process group (``None``: the default group) or a
+    ``DeviceMesh``; with a mesh, ``axis_names`` name the dimensions the
+    windows are sharded over, a reduction runs
+    over each named dimension's group in turn, and a rank's shard is its
+    row-major coordinate over those dimensions, as ``repro``'s
+    ``P(axis_names)`` orders shards.
+    """
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not dist.is_initialized():
+        raise guards.SearchInputError(
+            "sharded search needs torch.distributed's default process group "
+            "(torch.distributed.init_process_group)"
+        )
+    if not isinstance(mesh, DeviceMesh):
+        return [mesh], dist.get_world_size(mesh), dist.get_rank(mesh)
+    dims = [mesh.mesh_dim_names.index(a) for a in axis_names]
+    coord = mesh.get_coordinate()
+    n_shards, shard = 1, 0
+    for d in dims:
+        n_shards *= mesh.size(d)
+        shard = shard * mesh.size(d) + coord[d]
+    return [mesh.get_group(a) for a in axis_names], n_shards, shard
+
+
+def _all_reduce(x: torch.Tensor, op, groups) -> torch.Tensor:
+    """``x`` reduced by ``op`` over every group in turn (in place)."""
+    import torch.distributed as dist
+
+    for g in groups:
+        dist.all_reduce(x, op=op, group=g)
+    return x
+
+
+def make_sharded_search(mesh, axis_names, plan: SearchPlan, device=None):
+    """Build the sharded search program of a mesh config.
+
+    Returns ``search_fn(ref, queries) -> (best_dist (Q,), best_start (Q,),
+    rounds, n_quar)``, every value the same on every rank. Port of
+    ``repro``'s ``shard_map`` program: each rank of ``mesh`` (see
+    :func:`_shard_layout`) is one shard and runs on ``device`` (the card
+    by default). Every rank is given the same ``ref`` and ``queries``; the
+    ``per = ceil(n_win / n_shards)`` window starts ``[lo, lo + per)`` are
+    this rank's, padding starts past ``n_win`` clamped and invalid.
+
+    A rank computes the window stats of the whole reference, counts its
+    own quarantined windows (summed over the shards), runs the cascade on
+    its contiguous range (one launch of kernel B on ``ref[lo : hi + l -
+    1]``; padding lanes ``+inf``), sorts stably, and then runs best-first
+    rounds in lockstep with its peers: the lane gating of the host rounds,
+    one round of kernel A (``gather="fused"``) or D (``"slab"``) with the
+    ``cb`` suffix, the fold into its own incumbents, then ``ub =
+    all_reduce(min(ub, local ub), MIN)`` and the continue flag
+    ``all_reduce(any(next), MAX)``, read once a round on the host. There
+    is no warm prepass, and ``plan.variant`` and ``plan.rounds`` are
+    ignored, as in ``repro``. The reconcile takes the global minimum
+    distance and the smallest start among the shards whose own distance
+    ``torch.isclose``s it (``repro``'s ``jnp.isclose`` pairing).
+    """
+    import torch.distributed as dist
+
+    groups, n_shards, shard = _shard_layout(mesh, axis_names)
+    dev = resolve_device(device)
+    batch, length = plan.batch, plan.length
+
+    def search_fn(ref, queries):
+        ref = as_float32(ref, dev)
+        queries = as_float32(queries, dev)
+        pq = prepare_queries(plan, queries)
+        nq = pq.qn.shape[0]
+        if plan.gather != "fused":
+            _ensure_slab_budget(plan, nq * batch, "make_sharded_search")
+        n_win = ref.shape[0] - length + 1
+        per = -(-n_win // n_shards)
+        lo = shard * per
+        hi = min(lo + per, n_win)                  # this shard's real windows
+        own = torch.arange(lo, lo + per, device=dev)
+        starts, valid = torch.clamp_max(own, n_win - 1), own < n_win
+        # Mask on the raw series, sanitize, then the whole series' stats.
+        prep = prepare_ref(plan, ref)
+        if prep.valid is not None:
+            q_ok = prep.valid[starts]
+            n_quar = (valid & ~q_ok).sum(dtype=torch.int64)
+            valid = valid & q_ok
+        else:
+            n_quar = torch.zeros((), dtype=torch.int64, device=dev)
+        n_quar = _all_reduce(n_quar, dist.ReduceOp.SUM, groups)
+
+        lbs = torch.full((nq, per), float("inf"), device=dev)
+        if hi > lo:
+            lbs[:, : hi - lo] = cascade_lower_bounds(
+                prep.ref[lo : hi + length - 1], pq.qn, prep.mu[lo:hi],
+                prep.sigma[lo:hi], length, plan.window, chunk=plan.chunk,
+                valid=valid[: hi - lo],
+            )
+        lb_sorted, order = torch.sort(lbs, dim=1, stable=True)
+        n_rounds = -(-per // batch)
+        pad = n_rounds * batch - per
+        starts_p = torch.cat([starts[order], order.new_zeros(nq, pad)], dim=1)
+        lb_p = torch.cat(
+            [lb_sorted, lb_sorted.new_full((nq, pad), float("inf"))], dim=1)
+
+        cols = torch.arange(batch, device=dev)
+        r = torch.zeros(nq, dtype=torch.int64, device=dev)
+        ub = torch.full((nq,), BIG, dtype=torch.float32, device=dev)
+        loc = initial_state(nq, device=dev)
+        go = True
+        while go:
+            idx = torch.clamp_max(r, n_rounds - 1)[:, None] * batch + cols
+            s = starts_p.gather(1, idx)
+            lb = lb_p.gather(1, idx)
+            local_more = (r < n_rounds) & (lb[:, 0] < ub)
+            ub_lanes = _dead_or(local_more[:, None] & (lb < ub[:, None]), ub)
+            d, _ = _dtw_round(plan, prep, pq, s, ub_lanes, use_cb=True)
+            d = torch.where(torch.isfinite(lb) & local_more[:, None], d,
+                            float("inf"))
+            loc, _ = fold_min(loc, s, d)
+            ub = _all_reduce(torch.minimum(ub, loc.ub), dist.ReduceOp.MIN,
+                             groups)
+            r = r + local_more.to(r.dtype)
+            nxt = lb_p.gather(1, torch.clamp_max(r, n_rounds - 1)[:, None]
+                              * batch)[:, 0]
+            more = ((r < n_rounds) & (nxt < ub)).any().to(torch.int32)
+            go = bool(_all_reduce(more, dist.ReduceOp.MAX, groups))
+
+        # Per-query global argmin: the least distance, then the least start
+        # among the shards that reach it (within isclose).
+        g_min = _all_reduce(loc.ub.clone(), dist.ReduceOp.MIN, groups)
+        cand = torch.where(torch.isclose(loc.ub, g_min), loc.best,
+                           torch.iinfo(torch.int64).max)
+        g_start = _all_reduce(cand, dist.ReduceOp.MIN, groups)
+        rounds = _all_reduce(r.max(), dist.ReduceOp.MAX, groups)
+        return g_min, g_start, rounds, n_quar
+
+    return search_fn
+
+
+# ---------------------------------------------------------------------------
 # Executor protocol — the range-execution seam
 # ---------------------------------------------------------------------------
 
@@ -726,7 +875,8 @@ class Executor(Protocol):
     one (reference, queries) workload at construction and searches any
     window-start range of it against carried incumbents, returning results
     in global window coordinates, as tensors on its device with the work
-    possibly still queued. Implementations: host rounds, persistent sweep.
+    possibly still queued. Implementations: host rounds, persistent sweep,
+    sharded program.
     """
 
     def run_range(
@@ -787,16 +937,70 @@ class PersistentExecutor(_OfflineRangeExecutor):
     _rounds = "persistent"
 
 
+class ShardedExecutor:
+    """Range execution on a mesh: :func:`make_sharded_search` over the
+    range's slice ``ref[lo : hi + length - 1]``, every rank calling
+    ``run_range`` with the same arguments.
+
+    The same ``run_range`` contract as the host executors, so the
+    resilient layer can schedule mesh-sized ranges; one program is built
+    per plan. Incoming incumbent *bounds* seed nothing (the program starts
+    cold at ``BIG``, as ``repro``'s does); the fold afterwards keeps
+    whichever side is tighter. ``rounds`` is the program's, broadcast to
+    ``(Q,)``; ``lanes``, ``lb_pruned``, ``rows`` and ``cells`` are -1.
+    """
+
+    def __init__(self, mesh, axis_names, ref, queries, device=None):
+        self.mesh = mesh
+        self.axis_names = None if axis_names is None else tuple(axis_names)
+        self.device = resolve_device(device)
+        self.ref = as_float32(ref, self.device)
+        queries = as_float32(queries, self.device)
+        self.queries = queries[None] if queries.ndim == 1 else queries
+        self._fns: dict[SearchPlan, object] = {}
+
+    def _fn(self, plan: SearchPlan):
+        if plan not in self._fns:
+            self._fns[plan] = make_sharded_search(
+                self.mesh, self.axis_names, plan, device=self.device
+            )
+        return self._fns[plan]
+
+    def run_range(
+        self, plan: SearchPlan, state: IncumbentState, lo: int, hi: int
+    ) -> RangeResult:
+        seg = self.ref[lo : hi + plan.length - 1]
+        best_d, best_s, rounds, n_quar = self._fn(plan)(seg, self.queries)
+        seed_ub = as_float32(state.ub, self.device)
+        seed_best = torch.as_tensor(state.best, device=self.device)
+        # A range with no searchable window comes back (BIG, -1): it keeps
+        # the carried state even where that is +inf (``repro`` takes BIG
+        # with the start lo - 1 there).
+        improved = (best_d < seed_ub) & (best_s >= 0)
+        merged = IncumbentState(
+            ub=torch.where(improved, best_d, seed_ub),
+            best=torch.where(improved, best_s + lo, seed_best.to(best_s.dtype)),
+        )
+        nq = self.queries.shape[0]
+        no_info = torch.full((nq,), -1, dtype=torch.int64, device=self.device)
+        return RangeResult(
+            state=merged,
+            stats=SearchStats(
+                rounds=rounds.expand(nq), lanes=no_info, lb_pruned=no_info,
+                rows=no_info, cells=no_info,
+            ),
+            quarantined=n_quar,
+        )
+
+
 def get_executor(
     plan: SearchPlan, ref, queries, *, mesh=None, axis_names=None,
     device=None,
 ) -> Executor:
-    """Bind the executor ``plan.rounds`` selects to one workload."""
+    """Bind the executor ``plan.rounds`` selects to one workload; with a
+    ``mesh`` (a process group or ``DeviceMesh``), the sharded one."""
     if mesh is not None:
-        raise guards.SearchInputError(
-            "sharded execution (get_executor(mesh=...), ShardedExecutor) is "
-            "not ported yet; use the host-rounds or persistent executor"
-        )
+        return ShardedExecutor(mesh, axis_names, ref, queries, device=device)
     if plan.rounds == "persistent":
         return PersistentExecutor(ref, queries, device=device)
     return HostRoundsExecutor(ref, queries, device=device)

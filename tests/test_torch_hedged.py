@@ -36,6 +36,7 @@ from repro_torch.search import (
     HostRoundsExecutor,
     IncumbentState,
     PersistentExecutor,
+    ShardedExecutor,
     get_executor,
     resilient_search,
 )
@@ -247,15 +248,22 @@ def test_run_range_matches_repro(rounds, lo, hi):
 
 
 def test_get_executor_has_no_mesh_yet():
+    """``get_executor`` binds the executor ``plan.rounds`` selects, and with
+    a ``mesh`` the sharded one, whose first range raises while no process
+    group exists (``tests/test_torch_sharded.py`` runs it on one)."""
     ref, queries = _data()
     plan, _ = _plans()
     assert isinstance(get_executor(plan, ref, queries, device="cpu"),
                       HostRoundsExecutor)
     assert isinstance(get_executor(_plans("persistent")[0], ref, queries,
                                    device="cpu"), PersistentExecutor)
-    with pytest.raises(guards.SearchInputError, match="not ported yet"):
-        get_executor(plan, ref, queries, mesh=object(), axis_names=("d",),
-                     device="cpu")
+    ex = get_executor(plan, ref, queries, mesh=object(), axis_names=("d",),
+                      device="cpu")
+    assert isinstance(ex, ShardedExecutor)
+    state = IncumbentState(ub=torch.full((Q,), float("inf")),
+                           best=torch.full((Q,), -1))
+    with pytest.raises(guards.SearchInputError, match="init_process_group"):
+        ex.run_range(plan, state, 0, 100)
 
 
 class _SlowRangeExecutor:
