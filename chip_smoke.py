@@ -132,14 +132,42 @@ Drives ``repro_torch`` (never JAX, never ``repro``) on ``cuda:0``:
      share of its bound, the lanes C and E keep in
      flight and run per query, and the host-rounds wall per round less
      kernel A's time;
-  7. a ``{"stream": {...}}`` line of the streaming arms' numbers, a
+  7. LM serving ("phase 7 lm serve"), which launches none of the five
+     kernels (the launch counts are set to 0 before each arm and read
+     after it): (a) Llama-3.2-3B at full width (28 layers, d 3072, 24 / 8
+     heads, vocab 128,256, tied, bfloat16), random weights from a seeded
+     generator on the card, 4 prompts of 512 tokens plus 64 greedy tokens
+     through ``serve.generate``, run once for the logits and again, warm
+     at the same shapes, for prefill ms and decode ms a token (p50, p99)
+     by CUDA events, tokens a second and the allocation peak;
+     ``torch.profiler``'s device time over one prefill and 8 decode
+     steps; the decode logits held to a teacher-forced bfloat16 forward
+     over the generated sequence (``TOL_LM_BF16``) and to a float32 copy
+     of the weights on the card (within ``TOL_LM_F32``, and each greedy
+     token's float32 logit within ``TOL_LM_TIE`` of its row's maximum);
+     the score product held to float64 (``TOL_LM_SCORES``), and both it
+     and the float32 gap read again with the product left in bfloat16,
+     the control; (b) one 8,192-token prompt (past
+     ``CHUNKED_THRESHOLD``) prefilled on the chunked online-softmax
+     attention and on the plain one, last-token logits within
+     ``TOL_LM_BF16`` and the argmaxes a near tie; (c) Mamba2-130M at full
+     width (24 layers, d 768, bfloat16), the same generation and checks;
+     (d) every arch at ``reduced()`` in float32, weights drawn on the CPU
+     and carried to the card: forward logits, and greedy tokens (through
+     ``generate`` where it runs, else by ``decode_step``: pixtral after an
+     embeddings prefill, recurrentgemma from the empty cache, whisper after
+     ``prefill_encoder``) with the logits each was chosen from, card
+     against CPU within ``TOL_LM_CROSS``;
+  8. a ``{"stream": {...}}`` line of the streaming arms' numbers, a
      ``{"resilient": {...}}`` line of the host layer's arms, a
      ``{"sharded": {...}}`` line of the sharded arms, a
+     ``{"lm_serve": {...}}`` line of phase 7's arms, a
      ``{"kernels": [...]}`` line (``launches`` on the offline path that runs
      each kernel, ``stream_launches`` in streaming arm (a) for A and B and
      arm (c) for D, ``resilient_launches`` in arm (a) of phase 4 resilient
      for A and B and arm (b) for C, ``sharded_launches`` in phase 4
-     sharded's arm (a), fused for A and B and slab for D); the last line is
+     sharded's arm (a), fused for A and B and slab for D, ``lm_launches``
+     in phase 7, all 0), the card's name and power limit; the last line is
      ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result.
@@ -212,6 +240,27 @@ SHARD_COLL_REPS = 1000
 SHARD_WORLD = 2
 SHARD_WARM_N = 100_000
 SHARD_TIMEOUT = 300
+# LM serving (phase 7): LM_ARCH at full width in bfloat16, random weights
+# from LM_SEED on the card: LM_BATCH prompts of LM_PROMPT tokens plus LM_NEW
+# greedy tokens through serve.generate; one prompt of LM_LONG tokens (past
+# models.attention.CHUNKED_THRESHOLD) prefilled on the chunked and on the
+# plain attention; LM_SSM_ARCH at full width, the same generation; every
+# arch at reduced() card against CPU, LM_CROSS_B prompts of LM_CROSS_S
+# tokens and LM_CROSS_NEW greedy tokens. The profiler watches
+# LM_PROFILE_STEPS decode steps of each full-width arch.
+LM_ARCH = "llama3.2-3b"
+LM_SSM_ARCH = "mamba2-130m"
+LM_SEED = 0
+LM_BATCH = 4
+LM_PROMPT = 512
+LM_NEW = 64
+LM_LONG = 8192
+LM_CROSS_B = 2
+LM_CROSS_S = 12
+LM_CROSS_NEW = 8
+LM_PROFILE_STEPS = 8
+LM_TOP_OPS = 4  # the prefill's costliest kernels reported
+LM_OP_NAME = 60  # characters of a kernel's name kept
 # Phase 3 holds the counter variants of kernels A and D against the plain
 # version run on each round's lanes followed by COUNT_COPIES copies of them
 # under ub = BIG (which never abandon): 65 x 2,048 = 133,120 rows, more
@@ -267,6 +316,38 @@ TOL_CROSS = 1e-4
 # core.ea_pruned_dtw against the round kernel, same stats; its band starts
 # elsewhere, so P rounds differently as for TOL_A: 1e-3 relative.
 TOL_ORACLE = 1e-3
+
+# LM serving (phase 7). bfloat16 keeps 8 significant bits (a step of
+# 2^-8 = 0.4% of a value). The decode, the teacher-forced forward and the
+# two prefill attentions multiply through other cuBLAS kernels (M = 4
+# against M = 2,300) and round each layer's outputs at other places, so
+# their logits (up to ~5 at full width) part by several bfloat16 steps:
+# measured 0.086 (Llama-3.2-3B) and 0.055 (Mamba2-130M) decode against
+# forward, 0.074 chunked against plain (an H100 80GB HBM3 at 700 W).
+# TOL_LM_BF16 is about 3x the largest. A greedy token may then be the float32 model's
+# near second: the shortfall of its float32 logit under the row's
+# maximum is at most twice the largest bfloat16 / float32 difference
+# (measured 0.083 and 0.115; shortfalls 0.020 and 0.076), and must stay
+# within TOL_LM_TIE; the chunked and plain prefills' argmaxes likewise.
+TOL_LM_BF16 = 0.25
+TOL_LM_TIE = 0.25
+# bfloat16 decode against the float32 forward: measured 0.0835
+# (Llama-3.2-3B) and 0.115 (Mamba2-130M); TOL_LM_F32 is ~1.7x the
+# larger. It cannot see the score product's type: the control (scores
+# left in bfloat16) measured 0.0838, since with random weights attention
+# is near uniform over its 512-576 keys. TOL_LM_SCORES sees it.
+TOL_LM_F32 = 0.2
+# The score product (attention._scores) on bfloat16 q, k against float64:
+# float32 sums of exact bfloat16 products part by float32 rounding
+# (measured 1.3e-7 and 2.5e-7 of the largest score); a product left in
+# bfloat16 rounds each score to 8 bits (measured 2.5e-3). TOL_LM_SCORES
+# lies between, and the control must miss it.
+TOL_LM_SCORES = 1e-4
+# Card against CPU at reduced() in float32: the same ops, with cuBLAS's
+# and the CPU's orders of float32 sums (and index_add_'s unfixed order in
+# the MoE): measured under 7.2e-7 on logits under 1; 1e-5, the CPU tests'
+# bound against repro.
+TOL_LM_CROSS = 1e-5
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 and FP32 outside the
 # tensor cores.
@@ -2480,6 +2561,514 @@ def phase_times(torch, kb: dict, ka: dict, kd: dict, kce: dict,
     ]
 
 
+# ----------------------------- phase 7: LM serving --------------------------
+
+
+def lm_recorder(torch, model, rec: dict, keep_logits: bool = True):
+    """``model`` with ``prefill`` and ``decode_step`` wrapped: a pair of
+    CUDA events around each call goes to ``rec["prefill"]`` or
+    ``rec["decode"]`` and, with ``keep_logits``, its last-position logits
+    to ``rec["logits"]`` (float32, (B, V)). Records only, never
+    synchronizes."""
+    rec.update(logits=[], prefill=[], decode=[])
+
+    def wrap(fn, key):
+        def run(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits, cache = fn(*args, **kw)
+            stop.record()
+            rec[key].append((start, stop))
+            if keep_logits:
+                rec["logits"].append(logits[:, -1].float())
+            return logits, cache
+        return run
+
+    return model._replace(prefill=wrap(model.prefill, "prefill"),
+                          decode_step=wrap(model.decode_step, "decode"))
+
+
+def lm_generate(torch, model, params, prompt, new: int) -> dict:
+    """``new`` greedy tokens after ``prompt`` through ``generate``, twice
+    at the same shapes. The first run keeps the logits each token was
+    chosen from (B, new, V) and warms the allocator and cuBLAS; the
+    second is timed, keeps no logits and says prefill ms and decode ms a
+    token (CUDA events), the wall, and its allocation peak."""
+    from repro_torch.serve.generate import generate
+
+    rec: dict = {}
+    out = generate(lm_recorder(torch, model, rec), params, prompt, new)
+    logits = torch.stack(rec["logits"], 1)
+    torch.cuda.synchronize()
+    timed = lm_recorder(torch, model, rec, keep_logits=False)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    generate(timed, params, prompt, new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    decode = [a.elapsed_time(b) / 1e3 for a, b in rec["decode"]]  # s
+    b = prompt.shape[0]
+    return {
+        "tokens": out, "logits": logits,
+        "prefill_ms": rec["prefill"][0][0].elapsed_time(rec["prefill"][0][1]),
+        "decode_ms_p50": pct(decode, 50), "decode_ms_p99": pct(decode, 99),
+        "decode_steps": len(decode), "wall_s": wall,
+        "tokens_per_s": b * new / wall,
+        "decode_tokens_per_s": b * 1e3 / pct(decode, 50),
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+    }
+
+
+def lm_device_busy(torch, model, params, prompt) -> dict:
+    """The device's side of one prefill of ``prompt`` and of the
+    LM_PROFILE_STEPS decode steps after it, by ``torch.profiler``: the
+    CUDA kernels' (and copies') summed time and number, a step for decode;
+    for the prefill also that time by kind of kernel (``lm_op_kind``) and
+    its LM_TOP_OPS costliest kernels; None where the profiler saw no
+    device activity."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_events(prof):
+        return [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    b, s = prompt.shape
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch.no_grad():
+        cache = model.init_cache(b, s + LM_PROFILE_STEPS, device=DEVICE)
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            logits, cache = model.prefill(params, cache, tokens=prompt)
+            torch.cuda.synchronize()
+        pre = device_events(prof)
+        tok = torch.argmax(logits[:, -1], -1)[:, None]
+        with profile(activities=acts) as prof:
+            for i in range(LM_PROFILE_STEPS):
+                logits, cache = model.decode_step(params, cache, tok, s + i)
+            torch.cuda.synchronize()
+        dec = device_events(prof)
+    out = {"device_ms_a_step": None, "device_ops_a_step": None,
+           "prefill_device_ms": None, "prefill_device_ops": None,
+           "prefill_kinds_ms": None, "prefill_top_ops_ms": None}
+    if dec:
+        busy_us = sum(e.time_range.elapsed_us() for e in dec)
+        out.update(device_ms_a_step=busy_us / 1e3 / LM_PROFILE_STEPS,
+                   device_ops_a_step=len(dec) / LM_PROFILE_STEPS)
+    if pre:
+        by_name: Counter = Counter()
+        by_kind: Counter = Counter()
+        for e in pre:
+            ms = e.time_range.elapsed_us() / 1e3
+            by_name[e.name[:LM_OP_NAME]] += ms
+            by_kind[lm_op_kind(e.name)] += ms
+        out.update(prefill_device_ms=sum(by_name.values()),
+                   prefill_device_ops=len(pre),
+                   prefill_kinds_ms=dict(by_kind.most_common()),
+                   prefill_top_ops_ms=dict(by_name.most_common(LM_TOP_OPS)))
+    return out
+
+
+def lm_op_kind(name: str) -> str:
+    """A CUDA kernel's kind, from its name: "matmul" (cuBLAS's and
+    CUTLASS's), "softmax", "reduce", "copy", "elementwise" or "other"."""
+    low = name.lower()
+    for kind, marks in (("matmul", ("gemm", "nvjet", "cutlass", "xmma")),
+                        ("softmax", ("softmax",)),
+                        ("reduce", ("reduce",)),
+                        ("copy", ("memcpy", "memset", "copy"))):
+        if any(m in low for m in marks):
+            return kind
+    return "elementwise" if "elementwise" in low else "other"
+
+
+def lm_bf16_scores(q, k):
+    """The control for the float32 score product: ``attention._scores``
+    with the product left in q's and k's bfloat16."""
+    import torch
+
+    return torch.einsum("bskgh,btkh->bkgst", q, k).float()
+
+
+def lm_scores_check(torch, cfg, prompt_len: int, total: int) -> dict:
+    """``attention._scores`` on seeded bfloat16 q and k at the shapes of
+    arm (a)'s prefill (S = T = ``prompt_len``) and last decode step (S =
+    1, T = ``total``) against the float64 product: the largest error over
+    the largest |score| within TOL_LM_SCORES, and the control
+    (``lm_bf16_scores``) beyond it."""
+    from repro_torch.models import attention
+
+    g = cfg.n_heads // cfg.n_kv
+    gen = torch.Generator(device=DEVICE).manual_seed(LM_SEED)
+    out = {}
+    for label, s, t in (("prefill", prompt_len, prompt_len),
+                        ("decode", 1, total)):
+        q = torch.randn((LM_BATCH, s, cfg.n_kv, g, cfg.head_dim),
+                        generator=gen, device=DEVICE).bfloat16()
+        k = torch.randn((LM_BATCH, t, cfg.n_kv, cfg.head_dim),
+                        generator=gen, device=DEVICE).bfloat16()
+        ref = torch.einsum("bskgh,btkh->bkgst", q.double(), k.double())
+        scale = float(ref.abs().max())
+        for arm, fn in (("", attention._scores), ("control_", lm_bf16_scores)):
+            err = float((fn(q, k).double() - ref).abs().max()) / scale
+            out[f"{arm}{label}_rel_err"] = err
+        del q, k, ref
+    say(f"[7 lm serve] (a) score product against float64, largest error "
+        f"over the largest |score|: prefill {out['prefill_rel_err']:.3g}, "
+        f"decode {out['decode_rel_err']:.3g} (tol {TOL_LM_SCORES}); the "
+        f"control in bfloat16 {out['control_prefill_rel_err']:.3g}, "
+        f"{out['control_decode_rel_err']:.3g}")
+    for label in ("prefill", "decode"):
+        check(out[f"{label}_rel_err"] <= TOL_LM_SCORES,
+              f"the {label} score product is not float32")
+        check(out[f"control_{label}_rel_err"] > TOL_LM_SCORES,
+              f"the {label} score check cannot tell bfloat16 from float32")
+    return out
+
+
+def lm_control(torch, model, params, prompt, new: int) -> dict:
+    """Arm (a)'s generation again with the score product left in
+    bfloat16 (``lm_bf16_scores`` in place of ``attention._scores``): the
+    control for the float32 gap."""
+    from repro_torch.models import attention
+    from repro_torch.serve.generate import generate
+
+    rec: dict = {}
+    scores = attention._scores
+    attention._scores = lm_bf16_scores
+    try:
+        out = generate(lm_recorder(torch, model, rec), params, prompt, new)
+    finally:
+        attention._scores = scores
+    return {"tokens": out, "logits": torch.stack(rec["logits"], 1)}
+
+
+def lm_hold(torch, label, model, cfg, params, gen: dict,
+            control: dict | None = None) -> dict:
+    """Hold a bfloat16 generation to teacher-forced forwards over the
+    generated sequence: the decode logits against the bfloat16 forward
+    (within TOL_LM_BF16) and against a float32 copy of the same weights
+    (within TOL_LM_F32), and each greedy token's float32 logit within
+    TOL_LM_TIE of its row's float32 maximum (the near-tie rule: bfloat16
+    rounding may pick a token the float32 model ranks a near second).
+    ``control``, a generation with the score product in bfloat16, is held
+    to the float32 copy too, and its gap reported."""
+    import copy
+    import dataclasses
+
+    from repro_torch.models.registry import build
+
+    def rows(g):
+        out, logits = g["tokens"], g["logits"]
+        s = out.shape[1] - logits.shape[1]
+        return out, logits, s, slice(s - 1, out.shape[1] - 1)
+
+    out, logits, s, sel = rows(gen)
+    with torch.no_grad():
+        fwd, _ = model.forward(params, tokens=out[:, :-1])
+        bf16_err = float((fwd[:, sel].float() - logits).abs().max())
+        del fwd
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        model32 = build(cfg32)
+        params32 = copy.deepcopy(params).float()
+        f32, _ = model32.forward(params32, tokens=out[:, :-1])
+        f32 = f32[:, sel].float()
+        control_err = None
+        if control is not None:
+            c_out, c_logits, _, c_sel = rows(control)
+            c32, _ = model32.forward(params32, tokens=c_out[:, :-1])
+            control_err = float((c32[:, c_sel].float() - c_logits).abs().max())
+            del c32
+        del params32
+    f32_err = float((f32 - logits).abs().max())
+    chosen = torch.gather(f32, -1, out[:, s:, None])[..., 0]
+    short = f32.amax(-1) - chosen
+    worst = float(short.max())
+    exact = int((short == 0).sum())
+    n = short.numel()
+    del f32
+    torch.cuda.empty_cache()
+    ctrl = ("" if control_err is None else
+            f" (the control, scores in bfloat16: {control_err:.4g})")
+    say(f"[7 lm serve] {label}: decode against the bfloat16 forward max abs "
+        f"{bf16_err:.4g} (tol {TOL_LM_BF16}); against the float32 forward max "
+        f"abs {f32_err:.4g} (tol {TOL_LM_F32}){ctrl}; greedy tokens the "
+        f"float32 argmax {exact}/{n}, the rest within {worst:.4g} of it "
+        f"(tol {TOL_LM_TIE})")
+    check(bf16_err <= TOL_LM_BF16,
+          f"{label}: bfloat16 decode differs from the bfloat16 forward")
+    check(f32_err <= TOL_LM_F32,
+          f"{label}: bfloat16 decode strays from the float32 forward")
+    check(worst <= TOL_LM_TIE,
+          f"{label}: a greedy token is no near tie of the float32 argmax")
+    return {"decode_vs_bf16_forward_max_abs": bf16_err,
+            "decode_vs_f32_forward_max_abs": f32_err,
+            "control_bf16_scores_vs_f32_forward_max_abs": control_err,
+            "greedy_f32_argmax": exact, "greedy_tokens": n,
+            "greedy_f32_worst_shortfall": worst}
+
+
+def lm_full(torch, arch: str):
+    """Arms (a) and (c): ``arch`` at full width in bfloat16 from a seeded
+    generator on the card, LM_BATCH x LM_PROMPT prompts plus LM_NEW greedy
+    tokens through ``generate``, held by ``lm_hold``; for an attention
+    arch, the score product checked and the control run."""
+    import numpy as np
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.registry import build
+
+    cfg = ARCHS[arch]
+    model = build(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(LM_SEED),
+                        DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(p.numel() for p in params.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    prompt = torch.as_tensor(np.random.default_rng(LM_SEED).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT)), device=DEVICE)
+    gen = lm_generate(torch, model, params, prompt, LM_NEW)
+    say(f"[7 lm serve] {arch}: {n:,} parameters, {nbytes / 1e9:.3f} GB of "
+        f"{cfg.dtype} weights, initialized in {init_s:.2f} s; "
+        f"{LM_BATCH} x {LM_PROMPT} prompt tokens + {LM_NEW} new: prefill "
+        f"{gen['prefill_ms']:.2f} ms, decode {gen['decode_ms_p50']:.3f} ms a "
+        f"token (p50), {gen['decode_ms_p99']:.3f} ms (p99) over "
+        f"{gen['decode_steps']} steps; generate {gen['wall_s']:.3f} s, "
+        f"{gen['tokens_per_s']:.1f} tokens/s ({gen['decode_tokens_per_s']:.1f} "
+        f"tokens/s in decode at p50); peak {gen['peak_bytes'] / 1e9:.3f} GB "
+        f"(timed warm, logits kept by the untimed run before)")
+    check(tuple(gen["tokens"].shape) == (LM_BATCH, LM_PROMPT + LM_NEW),
+          f"{arch}: generate returned {tuple(gen['tokens'].shape)}")
+    check(bool(torch.equal(gen["tokens"][:, :LM_PROMPT], prompt)),
+          f"{arch}: generate changed the prompt")
+    check(bool(torch.isfinite(gen["logits"]).all()), f"{arch}: non-finite logits")
+    busy = lm_device_busy(torch, model, params, prompt)
+    share = (None if busy["device_ms_a_step"] is None
+             else busy["device_ms_a_step"] / gen["decode_ms_p50"])
+    say(f"[7 lm serve] {arch}: torch.profiler over {LM_PROFILE_STEPS} decode "
+        f"steps: device busy {busy['device_ms_a_step']} ms a step "
+        f"({busy['device_ops_a_step']} kernels and copies a step), "
+        f"{'not measured' if share is None else f'{100 * share:.1f}%'} of "
+        f"the p50 step; over one prefill: device busy "
+        f"{busy['prefill_device_ms']} ms in {busy['prefill_device_ops']} "
+        f"kernels and copies, by kind {busy['prefill_kinds_ms']}, the "
+        f"costliest {busy['prefill_top_ops_ms']}")
+    arm = {"params": n, "weight_bytes": nbytes, "init_s": init_s}
+    control = None
+    if cfg.family in ("dense", "moe", "vlm"):
+        arm["scores"] = lm_scores_check(torch, cfg, LM_PROMPT,
+                                        LM_PROMPT + LM_NEW)
+        control = lm_control(torch, model, params, prompt, LM_NEW)
+    held = lm_hold(torch, arch, model, cfg, params, gen, control)
+    arm.update({k: v for k, v in gen.items() if k not in ("tokens", "logits")},
+               **busy, device_busy_share=share, **held)
+    return arm, model, params
+
+
+def lm_chunked(torch, model, params) -> dict:
+    """Arm (b): one LM_LONG-token prompt prefilled on the chunked
+    attention (LM_LONG >= CHUNKED_THRESHOLD) and on the plain ``_attend``
+    (the threshold raised past it): last-token logits within TOL_LM_BF16,
+    and the chunked argmax a near tie (TOL_LM_TIE) of the plain one."""
+    import numpy as np
+
+    from repro_torch.models import attention
+
+    cfg = model.cfg
+    check(LM_LONG >= attention.CHUNKED_THRESHOLD,
+          "the long prompt does not reach the chunked path")
+    prompt = torch.as_tensor(np.random.default_rng(LM_SEED + 1).integers(
+        0, cfg.vocab, (1, LM_LONG)), device=DEVICE)
+    out = {}
+    chunked = attention._attend_chunked
+    threshold = attention.CHUNKED_THRESHOLD
+    calls = []
+
+    def counted(*a, **k):
+        calls.append(1)
+        return chunked(*a, **k)
+
+    for label in ("chunked", "plain"):
+        attention._attend_chunked = counted
+        if label == "plain":
+            attention.CHUNKED_THRESHOLD = LM_LONG + 1
+        try:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            with torch.no_grad():
+                start.record()
+                logits, _ = model.prefill(params, model.init_cache(
+                    1, LM_LONG, device=DEVICE), tokens=prompt)
+                stop.record()
+            torch.cuda.synchronize()
+        finally:
+            attention.CHUNKED_THRESHOLD = threshold
+            attention._attend_chunked = chunked
+        out[label] = {"logits": logits[:, -1].float(),
+                      "ms": start.elapsed_time(stop),
+                      "peak_bytes": torch.cuda.max_memory_allocated(),
+                      "chunked_calls": len(calls)}
+        calls.clear()
+    c, pl = out["chunked"]["logits"], out["plain"]["logits"]
+    err = float((c - pl).abs().max())
+    scale = float(pl.abs().max())
+    same = bool(torch.equal(c.argmax(-1), pl.argmax(-1)))
+    # the plain logit of the chunked argmax, under the plain maximum
+    short = float((pl.amax(-1)
+                   - pl.gather(-1, c.argmax(-1, keepdim=True))[:, 0]).max())
+    say(f"[7 lm serve] (b) {LM_LONG}-token prefill: chunked "
+        f"{out['chunked']['ms']:.1f} ms (peak "
+        f"{out['chunked']['peak_bytes'] / 1e9:.2f} GB, {out['chunked']['chunked_calls']} "
+        f"chunked attention calls), plain {out['plain']['ms']:.1f} ms (peak "
+        f"{out['plain']['peak_bytes'] / 1e9:.2f} GB); last-token logits max "
+        f"abs diff {err:.4g} (|logit| up to {scale:.3g}; tol {TOL_LM_BF16}), "
+        f"same argmax {same} (the chunked one {short:.4g} under the plain "
+        f"maximum; tol {TOL_LM_TIE})")
+    check(out["chunked"]["chunked_calls"] == cfg.n_layers,
+          "the long prefill did not take the chunked path in every layer")
+    check(out["plain"]["chunked_calls"] == 0, "the plain prefill chunked")
+    check(err <= TOL_LM_BF16, "chunked and plain prefill disagree")
+    check(short <= TOL_LM_TIE, "the chunked argmax is no near tie of the plain")
+    return {"tokens": LM_LONG, "chunked_ms": out["chunked"]["ms"],
+            "plain_ms": out["plain"]["ms"],
+            "chunked_peak_bytes": out["chunked"]["peak_bytes"],
+            "plain_peak_bytes": out["plain"]["peak_bytes"],
+            "last_logits_max_abs": err, "same_argmax": same,
+            "argmax_shortfall": short}
+
+
+def lm_greedy_decode(torch, model, params, cache, logits, pos: int,
+                     steps: int):
+    """``steps`` greedy tokens by ``decode_step`` from ``logits`` (B, 1, V)
+    of position ``pos - 1``: (tokens (B, steps), float32 logits each was
+    chosen from (B, steps, V))."""
+    toks, seen = [], []
+    for i in range(steps):
+        seen.append(logits[:, -1].float())
+        toks.append(torch.argmax(logits[:, -1], -1))
+        logits, cache = model.decode_step(params, cache, toks[-1][:, None],
+                                          pos + i)
+    return torch.stack(toks, 1), torch.stack(seen, 1)
+
+
+def lm_cross_arch(torch, name: str) -> dict:
+    """Arm (d) for one arch at ``reduced()`` (float32): weights drawn on
+    the CPU and carried to the card; forward logits, and the greedy
+    continuation with the logits each token was chosen from, on both."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.registry import build
+    from repro_torch.serve.generate import generate
+
+    cfg = ARCHS[name].reduced()
+    model = build(cfg)
+    cpu = model.init(torch.Generator().manual_seed(LM_SEED), "cpu")
+    card = copy.deepcopy(cpu).to(DEVICE)
+    rng = np.random.default_rng(LM_SEED)
+    b, s, new = LM_CROSS_B, LM_CROSS_S, LM_CROSS_NEW
+    toks = rng.integers(0, cfg.vocab, (b, s))
+    emb = rng.normal(size=(b, s, cfg.d_model)).astype(np.float32)
+    res = {}
+    for side, dev, params in (("cpu", "cpu", cpu), ("card", DEVICE, card)):
+        t = torch.as_tensor(toks, device=dev)
+        e = torch.as_tensor(emb, device=dev)
+        with torch.no_grad():
+            kw = {"tokens": t}
+            if cfg.input_embeds:
+                kw["embeds"] = e
+                if cfg.family != "audio":
+                    del kw["tokens"]
+            fwd, _ = model.forward(params, **kw)
+            if cfg.family in ("dense", "moe", "ssm"):
+                rec: dict = {}
+                out = generate(lm_recorder(torch, model, rec), params, t, new)
+                greedy, seen = out[:, s:], torch.stack(rec["logits"], 1)
+                how = "generate"
+            else:
+                cache = model.init_cache(b, s + new, device=dev)
+                if cfg.family == "vlm":
+                    logits, cache = model.prefill(params, cache, embeds=e)
+                    pos = s
+                else:
+                    if cfg.family == "audio":
+                        cache = model.prefill(params, cache, embeds=e)
+                    for i in range(s):
+                        logits, cache = model.decode_step(params, cache,
+                                                          t[:, i:i + 1], i)
+                    pos = s
+                greedy, seen = lm_greedy_decode(torch, model, params, cache,
+                                                logits, pos, new)
+                how = "decode_step"
+        res[side] = {"fwd": fwd.float().cpu(), "greedy": greedy.cpu(),
+                     "seen": seen.float().cpu()}
+    g, h = res["card"], res["cpu"]
+    fwd_err = float((g["fwd"] - h["fwd"]).abs().max())
+    equal = bool(torch.equal(g["greedy"], h["greedy"]))
+    # up to the first step where a row's tokens part, the two saw the same
+    # prefix: compare the logits there, and a parting must be a near tie
+    steps = new
+    for i in range(new):
+        if not torch.equal(g["greedy"][:, i], h["greedy"][:, i]):
+            steps = i + 1
+            break
+    seen_err = float((g["seen"][:, :steps] - h["seen"][:, :steps]).abs().max())
+    tie = 0.0
+    if not equal:
+        i = steps - 1
+        gap = (h["seen"][:, i].gather(-1, h["greedy"][:, i:i + 1])
+               - h["seen"][:, i].gather(-1, g["greedy"][:, i:i + 1]))
+        tie = float(gap.abs().max())
+    say(f"[7 lm serve] (d) {name}: forward max abs {fwd_err:.3g}; greedy "
+        f"({how}, {new} tokens) {'equal' if equal else f'part at step {steps - 1}, a tie within {tie:.3g}'}; "
+        f"logits over {steps} steps max abs {seen_err:.3g} (tol {TOL_LM_CROSS})")
+    check(fwd_err <= TOL_LM_CROSS, f"{name}: forward logits differ card/CPU")
+    check(seen_err <= TOL_LM_CROSS, f"{name}: decode logits differ card/CPU")
+    check(tie <= TOL_LM_CROSS, f"{name}: greedy tokens part on no near tie")
+    return {"forward_max_abs": fwd_err, "decode_max_abs": seen_err,
+            "greedy_equal": equal, "via": how}
+
+
+def phase_lm(torch) -> dict:
+    """Phase 7: LM serving on the card (see the module docstring). Each
+    arm's launch counts are set to 0 just before it and read just after;
+    the LM path launches none of the five kernels."""
+    from repro_torch.configs import ARCHS
+
+    launches = {}
+
+    def counted(arm, fn, *args):
+        zero_launches()
+        out = fn(*args)
+        launches[arm] = launches_now()
+        check(sum(launches[arm].values()) == 0,
+              f"LM arm ({arm}) launched a search kernel: {launches[arm]}")
+        return out
+
+    torch.cuda.empty_cache()
+    a, model, params = counted("a", lm_full, torch, LM_ARCH)
+    b = counted("b", lm_chunked, torch, model, params)
+    del model, params
+    torch.cuda.empty_cache()
+    c, model, params = counted("c", lm_full, torch, LM_SSM_ARCH)
+    del model, params
+    torch.cuda.empty_cache()
+    d = counted("d", lambda: {name: lm_cross_arch(torch, name)
+                              for name in sorted(ARCHS)})
+    return {"arms": {"a": {"arch": LM_ARCH, **a}, "b": b,
+                     "c": {"arch": LM_SSM_ARCH, **c}, "d": d,
+                     "launches": launches},
+            "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -2541,6 +3130,7 @@ def main() -> int:
     timed("phase 5 baselines", phase_baselines, torch, cfg)
     timed("phase 5 stream cross-check", phase_stream_cross, torch, cfg)
     kernels = timed("phase 6", phase_times, torch, kb, ka, kd, kce, loop)
+    lm = timed("phase 7 lm serve", phase_lm, torch)
     # Launches on the path that runs each kernel: host rounds (A, B), the
     # persistent sweep (C), the slab arms (D, E).
     launches = dict(host["launches"])
@@ -2563,10 +3153,13 @@ def main() -> int:
         k["stream_launches"] = stream_launches[k["name"]]
         k["resilient_launches"] = resil_launches.get(k["name"], 0)
         k["sharded_launches"] = shard_launches.get(k["name"], 0)
+        k["lm_launches"] = {arm: n[k["name"]]
+                            for arm, n in lm["launches"].items()}
     say(f"total {time.perf_counter() - t_all:.2f} s")
     say(json.dumps({"stream": stream["arms"]}))
     say(json.dumps({"resilient": resil["arms"]}))
     say(json.dumps({"sharded": shard["arms"]}))
+    say(json.dumps({"lm_serve": lm["arms"]}))
     say(json.dumps({"kernels": kernels}))
     say(card["smi"])
     say(json.dumps({"ok": True, "device": {

@@ -3,7 +3,7 @@
 A second package beside ``repro`` (the JAX reference, which stays as it
 is). It imports ``torch`` and ``numpy`` only and mirrors ``repro``'s
 layout (``core/``, ``search/``, ``serve/``, ``kernels/``, ``configs/``,
-``data/``, ``launch/``), so each module's counterpart is found at the same path.
+``data/``, ``launch/``, ``models/``), so each module's counterpart is found at the same path.
 
 It covers offline subsequence search (``search.multi.multi_query_search``,
 ``search.subsequence.subsequence_search``) under both round drivers
@@ -17,8 +17,17 @@ persistent and hedged executors), ``search.resilient.resilient_search``,
 ``distributed.fault_tolerance``. The five kernels
 (A-E, one for each ``pl.pallas_call`` of ``repro``) are CUDA C++ for
 ``sm_90a`` (``kernels/csrc``); on CPU tensors each kernel's wrapper runs the
-kernel's plain PyTorch version instead. Sharded search and the LM
-scaffolding are not ported yet (ROADMAP.md Queue 1).
+kernel's plain PyTorch version instead. Sharded search runs on
+``torch.distributed`` (``search.pipeline.make_sharded_search``,
+``search.distributed``).
+
+LM serving is ported too: the four model families' forward passes,
+caches, prefill and decode (``models``), the registry
+(``models.registry.build``), ``serve.generate`` and ``launch.serve``, with
+the ten architecture configs (``configs.ARCHS``). It reaches no Pallas
+kernel in ``repro`` and runs on PyTorch ops. LM training (optimizers, the
+train step, sharding, dry-run) is not ported yet (ROADMAP.md Queue 1
+items 7b-7d).
 
 Entry points take a ``device`` argument and run on CUDA unless the caller
 passes ``device="cpu"``; with no device given and no CUDA present they

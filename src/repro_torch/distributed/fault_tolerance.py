@@ -23,7 +23,7 @@ Pure Python and numpy: the callers (``search.resilient``,
 ``search.pipeline.HedgedExecutor``, ``serve.supervisor``) make an
 attempt's time include its device work before they read the clock.
 ``repro``'s ``TrainingSupervisor`` and ``elastic_reshard`` drive the LM
-trainer and wait for it (ROADMAP.md Queue 1 item 7).
+trainer and wait for it (ROADMAP.md Queue 1 item 7b).
 """
 from __future__ import annotations
 

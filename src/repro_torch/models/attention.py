@@ -1,0 +1,238 @@
+"""GQA attention with sliding-window, QKV-bias, cross-attention and KV cache
+(port of ``repro/models/attention.py``).
+
+Functional layers over parameter trees (``common.ParamTree`` or plain
+dicts). Shapes, as in ``repro``:
+  x: (B, S, D);  q: (B, S, H, hd);  k/v: (B, T, K, hd)  (K = KV heads)
+
+Grouped attention reshapes q to (B, S, K, G, hd) with G = H // K so the
+product contracts per KV head. Scores are float32 whatever the weights'
+type: ``repro`` asks its matrix unit for float32 products
+(``preferred_element_type``), and a bfloat16 ``torch.einsum`` would round
+them to bfloat16, so ``_scores`` takes the score product on float32 copies
+of q and k (exact bfloat16 values, float32 sums). Probabilities are cast to
+v's type before the PV product, as in ``repro``. Plain PyTorch ops, no
+library attention: ``repro`` reaches no Pallas kernel here.
+
+The KV cache is updated in place by ``decode_attention`` (``repro``
+returns a new array); the returned dict holds the same tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.common import resolve_device
+from repro_torch.distributed import hints
+from repro_torch.models.common import dense_init, pdtype, rope
+
+NEG = -1.0e30
+
+
+def init_attention(gen, cfg, cross: bool = False) -> dict:
+    dt = pdtype(cfg)
+    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    p = {
+        "wq": dense_init(gen, (d, qd), dt),
+        "wk": dense_init(gen, (d, kvd), dt),
+        "wv": dense_init(gen, (d, kvd), dt),
+        "wo": dense_init(gen, (qd, d), dt),
+    }
+    if cfg.qkv_bias and not cross:
+        p["bq"] = torch.zeros((qd,), dtype=dt, device=gen.device)
+        p["bk"] = torch.zeros((kvd,), dtype=dt, device=gen.device)
+        p["bv"] = torch.zeros((kvd,), dtype=dt, device=gen.device)
+    return p
+
+
+def _project_q(p, x, cfg):
+    q = x @ p["wq"]
+    if "bq" in p:
+        q = q + p["bq"]
+    return q.reshape(x.shape[:-1] + (cfg.n_heads, cfg.head_dim))
+
+
+def _project_kv(p, x, cfg):
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bk" in p:
+        k = k + p["bk"]
+        v = v + p["bv"]
+    shp = x.shape[:-1] + (cfg.n_kv, cfg.head_dim)
+    return k.reshape(shp), v.reshape(shp)
+
+
+def _scores(q, k):
+    """Unscaled scores of grouped q (B,S,K,G,hd) and k (B,T,K,hd):
+    (B,K,G,S,T) float32, summed in float32 whatever the inputs' type."""
+    return torch.einsum("bskgh,btkh->bkgst", q.float(), k.float())
+
+
+def _attend(q, k, v, mask, cfg):
+    """q (B,S,H,hd), k/v (B,T,K,hd), mask (B|1, S, T) bool -> (B,S,H*hd)."""
+    b, s, h, hd = q.shape
+    kheads = k.shape[2]
+    g = h // kheads
+    q = q.reshape(b, s, kheads, g, hd)
+    scale = hd ** -0.5
+    scores = _scores(q, k) * scale
+    scores = torch.where(mask[:, None, None, :, :], scores, NEG)
+    if s == 1:  # decode: repro's explicit stable softmax
+        scores = hints.constrain_decode_scores(scores)
+        m = torch.amax(scores, dim=-1, keepdim=True)
+        e = torch.exp(scores - m)
+        probs = e / torch.sum(e, dim=-1, keepdim=True)
+    else:
+        probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkh->bskgh", probs.to(v.dtype), v)
+    return out.reshape(b, s, h * hd)
+
+
+def _attend_chunked(q, k, v, cfg, causal: bool, window: int,
+                    kv_chunk: int = 1024):
+    """Flash-style online-softmax attention over KV chunks of ``kv_chunk``.
+
+    Never materializes the (S, T) score matrix: memory per step is
+    O(S * kv_chunk). ``repro``'s ``lax.scan`` over chunks is a loop here.
+    q (B,S,H,hd), k/v (B,T,K,hd) -> (B,S,H*hd).
+    """
+    b, s, h, hd = q.shape
+    t = k.shape[1]
+    kheads = k.shape[2]
+    g = h // kheads
+    qg = q.reshape(b, s, kheads, g, hd).float()  # once, not per chunk
+    scale = hd ** -0.5
+    n_chunks = -(-t // kv_chunk)
+    t_pad = n_chunks * kv_chunk
+    if t_pad != t:
+        pad = (0, 0, 0, 0, 0, t_pad - t)
+        k = torch.nn.functional.pad(k, pad)
+        v = torch.nn.functional.pad(v, pad)
+    dev = q.device
+    rows = torch.arange(s, device=dev)[:, None]
+    acc = torch.zeros((b, s, kheads, g, hd), dtype=torch.float32, device=dev)
+    m_run = torch.full((b, kheads, g, s), NEG, dtype=torch.float32, device=dev)
+    l_run = torch.zeros((b, kheads, g, s), dtype=torch.float32, device=dev)
+    for c in range(n_chunks):
+        c0 = c * kv_chunk
+        kb = k[:, c0:c0 + kv_chunk]
+        vb = v[:, c0:c0 + kv_chunk]
+        scores = _scores(qg, kb) * scale
+        cols = c0 + torch.arange(kv_chunk, device=dev)[None, :]
+        mask = cols < t
+        if causal:
+            mask = torch.logical_and(mask, cols <= rows)
+            if window:
+                mask = torch.logical_and(mask, cols > rows - window)
+        scores = torch.where(mask[None, None, None, :, :], scores, NEG)
+        m_new = torch.maximum(m_run, torch.amax(scores, dim=-1))
+        alpha = torch.exp(m_run - m_new)
+        p = torch.exp(scores - m_new[..., None])
+        l_run = l_run * alpha + torch.sum(p, dim=-1)
+        pv = torch.einsum("bkgst,btkh->bskgh", p.to(vb.dtype), vb).float()
+        acc = acc * alpha.permute(0, 3, 1, 2)[..., None] + pv
+        m_run = m_new
+    denom = torch.clamp_min(l_run, 1e-30).permute(0, 3, 1, 2)[..., None]
+    out = (acc / denom).to(v.dtype)
+    return out.reshape(b, s, h * hd)
+
+
+def causal_mask(s: int, window: int = 0, device=None) -> torch.Tensor:
+    """(1, S, S) causal (optionally sliding-window) bool mask."""
+    i = torch.arange(s, device=device)[:, None]
+    j = torch.arange(s, device=device)[None, :]
+    m = j <= i
+    if window:
+        m = torch.logical_and(m, j > i - window)
+    return m[None]
+
+
+CHUNKED_THRESHOLD = 8192  # sequences >= this use online-softmax attention
+
+
+def attention(p, x, positions, cfg, mask=None, kv_x=None, kv_positions=None,
+              use_rope: bool = True, causal: bool = True):
+    """Full-sequence attention (training / prefill). Cross-attn if kv_x.
+
+    For sequences >= ``CHUNKED_THRESHOLD`` (read at each call) the
+    flash-style chunked path is used (its mask is derived from ``causal``
+    and ``cfg.sliding_window``; an explicit ``mask`` forces the plain
+    path).
+    """
+    src = x if kv_x is None else kv_x
+    q = _project_q(p, x, cfg)
+    k, v = _project_kv(p, src, cfg)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        kpos = positions if kv_positions is None else kv_positions
+        k = rope(k, kpos, cfg.rope_theta)
+    s, t = x.shape[1], src.shape[1]
+    window = cfg.sliding_window if kv_x is None else 0
+    if mask is None and max(s, t) >= CHUNKED_THRESHOLD:
+        out = _attend_chunked(q, k, v, cfg, causal=causal and kv_x is None,
+                              window=window)
+    else:
+        if mask is None:
+            if causal and kv_x is None:
+                mask = causal_mask(s, window, device=x.device)
+            else:
+                mask = torch.ones((1, s, t), dtype=torch.bool, device=x.device)
+        out = _attend(q, k, v, mask, cfg)
+    return out @ p["wo"]
+
+
+def init_kv_cache(batch: int, max_len: int, cfg, dtype=None,
+                  device=None) -> dict:
+    dt = dtype or pdtype(cfg)
+    device = resolve_device(device)
+    shape = (batch, max_len, cfg.n_kv, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dt, device=device),
+        "v": torch.zeros(shape, dtype=dt, device=device),
+    }
+
+
+def decode_attention(p, x, pos: int, cache: dict, cfg, window: int = 0,
+                     use_rope: bool = True, write_pos: int | None = None):
+    """One-token decode with KV cache. x: (B, 1, D); pos: absolute position.
+
+    ``write_pos`` (defaults to ``pos``) is the cache slot: ``pos %
+    cache_len`` for rolling local-window caches; K is always roped at the
+    absolute position so relative rotations stay correct across wraps.
+    The slot is clamped into the cache, as ``dynamic_update_slice`` clamps
+    its start: a non-rolling decode at ``pos >= cache length`` writes the
+    last slot. Writes the cache in place; returns (output (B, 1, D),
+    cache).
+    """
+    b = x.shape[0]
+    t = cache["k"].shape[1]
+    wp = pos if write_pos is None else write_pos
+    rolling = write_pos is not None
+    q = _project_q(p, x, cfg)
+    k_new, v_new = _project_kv(p, x, cfg)
+    if use_rope:
+        posv = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+        q = rope(q, posv, cfg.rope_theta)
+        k_new = rope(k_new, posv, cfg.rope_theta)
+    slot = min(max(int(wp), 0), t - 1)
+    k, v = cache["k"], cache["v"]
+    k[:, slot] = k_new[:, 0].to(k.dtype)
+    v[:, slot] = v_new[:, 0].to(v.dtype)
+    j = torch.arange(t, device=x.device)[None, None, :]
+    if rolling:
+        # once warmed up, every slot holds one of the last ``t`` positions
+        m = torch.logical_or(j <= pos, torch.full_like(j, pos >= t, dtype=torch.bool))
+    else:
+        m = j <= pos
+        if window:
+            m = torch.logical_and(m, j > pos - window)
+    out = _attend(q, k, v, m.expand(b, 1, t), cfg)
+    return out @ p["wo"], {"k": k, "v": v}
+
+
+def decode_cross_attention(p, x, enc_k, enc_v, cfg):
+    """Cross-attention during decode; encoder K/V precomputed at prefill."""
+    b, t = enc_k.shape[0], enc_k.shape[1]
+    q = _project_q(p, x, cfg)
+    mask = torch.ones((b, 1, t), dtype=torch.bool, device=x.device)
+    out = _attend(q, enc_k, enc_v, mask, cfg)
+    return out @ p["wo"]

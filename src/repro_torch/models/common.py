@@ -1,0 +1,149 @@
+"""Shared layer primitives: norms, rotary embeddings, initializers, loss
+(port of ``repro/models/common.py``), and the port's parameter container.
+
+Initializers draw from an explicit ``torch.Generator`` on the generator's
+own device, in a fixed order; they cannot give ``jax.random``'s numbers,
+so a test that holds the port to ``repro`` carries ``repro``'s weights
+over (``repro_torch.interop.lm_params_from_numpy``).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def pdtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+class ParamTree(nn.Module):
+    """A nested parameter dict as a module, read as ``repro`` reads its
+    pytree: ``p["wq"]``, ``"bq" in p``, ``p["layers"][i]``.
+
+    A tensor entry becomes a parameter (``requires_grad=False``: this
+    slice serves and does not train), a dict a ``ParamTree`` and a list or
+    tuple an ``nn.ModuleList``. ``.to(device)`` moves the whole tree.
+    """
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for key, value in tree.items():
+            if isinstance(value, torch.Tensor):
+                self.register_parameter(
+                    key, nn.Parameter(value, requires_grad=False))
+            else:
+                self.add_module(key, _node(value))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
+
+def _node(value) -> nn.Module:
+    if isinstance(value, dict):
+        return ParamTree(value)
+    if isinstance(value, (list, tuple)):
+        return nn.ModuleList([_node(v) for v in value])
+    raise TypeError(f"no parameter-tree node for {type(value).__name__}")
+
+
+def dense_init(gen: torch.Generator, shape, dtype) -> torch.Tensor:
+    """Truncated-normal fan-in init: a standard normal truncated at +-2,
+    then scaled by ``fan_in ** -0.5`` (``trunc_normal_`` takes absolute
+    bounds, so they are +-2 std)."""
+    fan_in = shape[0] if len(shape) >= 2 else max(shape[0], 1)
+    std = fan_in ** -0.5
+    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+    return t.to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape, dtype) -> torch.Tensor:
+    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    t.normal_(0.0, 0.02, generator=gen)
+    return t.to(dtype)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMS norm scaled by ``1 + scale``, in float32, cast back to x's type."""
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + scale.float())).to(dt)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary position embedding, half-split (not interleaved).
+    x: (..., S, H, hd); positions: (..., S)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = theta ** (
+        -torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    angles = positions[..., :, None].float() * freqs  # (..., S, half)
+    cos = torch.cos(angles)[..., :, None, :]  # (..., S, 1, half)
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token cross entropy; logits (..., V) in any dtype, fp32 math."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        nll = nll * mask
+        return torch.sum(nll) / torch.sum(mask).to(nll.dtype).clamp_min(1.0)
+    return torch.mean(nll)
+
+
+def sinusoidal_positions(length: int, dim: int, device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal position embedding table (length, dim)."""
+    half = dim // 2
+    scale = torch.exp(
+        -torch.arange(half, dtype=torch.float32, device=device)
+        * (math.log(10000.0) / (half - 1)))
+    pos = (torch.arange(length, dtype=torch.float32, device=device)[:, None]
+           * scale[None, :])
+    return torch.cat([torch.sin(pos), torch.cos(pos)], dim=-1)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``log(1 + e^x)`` with no linear cut-off."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor, dim: int):
+    """Inclusive scan of ``h_t = a_t * h_{t-1} + b_t`` along ``dim`` from
+    ``h_{-1} = 0``; returns ``(prod_{s<=t} a_s, h_t)``.
+
+    The port of ``jax.lax.associative_scan`` with the combine
+    ``(al, bl), (ar, br) -> (al * ar, bl * ar + br)``: log2(n) doubling
+    steps (Hillis-Steele), each a few whole-tensor ops. ``a`` may have
+    size-1 dimensions where ``b`` is wider; it has ``b``'s length along
+    ``dim``. The tree adds in another order than XLA's, so the two agree
+    to float32 rounding, not bit for bit.
+    """
+    n = b.shape[dim]
+    step = 1
+    while step < n:
+        a_prev, a_cur = a.narrow(dim, 0, n - step), a.narrow(dim, step, n - step)
+        b_prev, b_cur = b.narrow(dim, 0, n - step), b.narrow(dim, step, n - step)
+        b = torch.cat([b.narrow(dim, 0, step), b_prev * a_cur + b_cur], dim)
+        a = torch.cat([a.narrow(dim, 0, step), a_prev * a_cur], dim)
+        step *= 2
+    return a, b

@@ -4,7 +4,9 @@
   prints, line for line, on the CPU;
 * ``examples/similarity_search_torch.py`` runs its four suites and its
   stream on the CPU at a tiny size, and its own exactness checks pass;
-* both examples default to the card (they raise without one);
+* ``examples/feature_retrieval_torch.py`` encodes token windows with
+  Mamba2 and retrieves the corrupted entry with EAPrunedDTW on the CPU;
+* the examples default to the card (they raise without one);
 * ``scripts/lint_port.py`` passes on the repository and catches a planted
   ``jax`` or ``repro`` import, a lazy one too.
 """
@@ -58,8 +60,16 @@ def test_similarity_search_torch_runs_on_the_cpu():
         assert f"\n{variant} " in out.stdout
 
 
+def test_feature_retrieval_torch_runs_on_the_cpu():
+    out = _run("examples/feature_retrieval_torch.py", "--device", "cpu")
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "retrieved entry 17" in out.stdout
+    assert "early-abandoned" in out.stdout
+
+
 @pytest.mark.parametrize("name", ["quickstart_torch",
-                                  "similarity_search_torch"])
+                                  "similarity_search_torch",
+                                  "feature_retrieval_torch"])
 def test_examples_default_to_the_card(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
