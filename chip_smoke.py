@@ -158,17 +158,43 @@ Drives ``repro_torch`` (never JAX, never ``repro``) on ``cuda:0``:
      embeddings prefill, recurrentgemma from the empty cache, whisper after
      ``prefill_encoder``) with the logits each was chosen from, card
      against CPU within ``TOL_LM_CROSS``;
-  8. a ``{"stream": {...}}`` line of the streaming arms' numbers, a
+  8. LM training ("phase 8 lm train"), which launches none of the five
+     kernels either (counted per arm): (a) Llama-3.2-3B at full width in
+     bfloat16 (AdamW, ``num_microbatches`` 2, remat), random weights from a
+     seeded generator on the card, 4 x 512 tokens a step from
+     ``TokenStream``, through ``make_train_step``: one untimed step, 6
+     timed by CUDA events (step ms p50 and max, tokens a second, host
+     wall), one under ``torch.profiler`` (device busy share, time by kind
+     of kernel), the allocation peak, each step's loss and gradient norm
+     (finite), beside the step's bound (products at the bfloat16 peak,
+     AdamW's and the accumulation's bytes); (b) one microbatch (2 x 512) of
+     (a)'s weights under deterministic algorithms: the bfloat16 gradients
+     with remat on and off (ms, peak, bit-equal) and against a float32 copy
+     on the card, per leaf by relative L2 (``TOL_TRAIN_GRAD``) with the
+     loss gap (``TOL_TRAIN_LOSS``), and the control, a float32 copy with
+     one layer perturbed, which must miss the gradient limit; (c) Mamba2-130M at full
+     width in bfloat16 under ``TrainingSupervisor`` and deterministic
+     algorithms, 12 steps of 8 x 512 with async checkpoints every 4 and a
+     failure injected at step 9: one restart, the uninterrupted run's last
+     loss and every leaf bit for bit, and the last checkpoint restored
+     into a zeroed state bit for bit (bfloat16 leaves included); (d) every
+     arch at ``reduced()`` in float32 (kimi-k2 with Adafactor, Llama also
+     with ``grad_compression="int8"``), 3 steps on the card and on the CPU
+     from one state: losses and gradient norms within ``TOL_TRAIN_CROSS``,
+     parameters within ``TOL_TRAIN_PARAMS`` (int8: quantization rounds
+     near-halves either way, so its parameters are reported only);
+  9. a ``{"stream": {...}}`` line of the streaming arms' numbers, a
      ``{"resilient": {...}}`` line of the host layer's arms, a
      ``{"sharded": {...}}`` line of the sharded arms, a
      ``{"lm_serve": {...}}`` line of phase 7's arms, a
+     ``{"lm_train": {...}}`` line of phase 8's arms, a
      ``{"kernels": [...]}`` line (``launches`` on the offline path that runs
      each kernel, ``stream_launches`` in streaming arm (a) for A and B and
      arm (c) for D, ``resilient_launches`` in arm (a) of phase 4 resilient
      for A and B and arm (b) for C, ``sharded_launches`` in phase 4
      sharded's arm (a), fused for A and B and slab for D, ``lm_launches``
-     in phase 7, all 0), the card's name and power limit; the last line is
-     ``{"ok": true, "device": {...}}``.
+     in phase 7 and ``train_launches`` in phase 8, all 0), the card's name
+     and power limit; the last line is ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 It exits non-zero at once when ``torch.cuda.is_available()`` is false, and
@@ -261,6 +287,32 @@ LM_CROSS_NEW = 8
 LM_PROFILE_STEPS = 8
 LM_TOP_OPS = 4  # the prefill's costliest kernels reported
 LM_OP_NAME = 60  # characters of a kernel's name kept
+# LM training (phase 8): TRAIN_ARCH at full width (bfloat16, AdamW,
+# num_microbatches 2, remat) on TRAIN_BATCH x TRAIN_SEQ tokens a step from
+# TokenStream(TRAIN_SEED): one untimed step, then TRAIN_STEPS timed ones and
+# one under torch.profiler; the precision arm's gradients on one
+# microbatch of its weights; TRAIN_SSM_ARCH at full width under
+# TrainingSupervisor, SUP_STEPS steps of SUP_BATCH x TRAIN_SEQ, an async
+# checkpoint every SUP_EVERY steps, a failure injected at step SUP_FAIL;
+# every arch at reduced() CROSS_STEPS steps of CROSS_B x CROSS_S on the
+# card and on the CPU from one state. The schedule: TRAIN_LR after
+# TRAIN_WARMUP steps, cosine to TRAIN_TOTAL.
+TRAIN_ARCH = "llama3.2-3b"
+TRAIN_SSM_ARCH = "mamba2-130m"
+TRAIN_SEED = 0
+TRAIN_BATCH = 4
+TRAIN_SEQ = 512
+TRAIN_STEPS = 6
+TRAIN_LR = 3e-4
+TRAIN_WARMUP = 10
+TRAIN_TOTAL = 100
+SUP_BATCH = 8
+SUP_STEPS = 12
+SUP_EVERY = 4
+SUP_FAIL = 9
+CROSS_STEPS = 3
+CROSS_B = 4
+CROSS_S = 16
 # Phase 3 holds the counter variants of kernels A and D against the plain
 # version run on each round's lanes followed by COUNT_COPIES copies of them
 # under ub = BIG (which never abandon): 65 x 2,048 = 133,120 rows, more
@@ -348,6 +400,38 @@ TOL_LM_SCORES = 1e-4
 # the MoE): measured under 7.2e-7 on logits under 1; 1e-5, the CPU tests'
 # bound against repro.
 TOL_LM_CROSS = 1e-5
+
+# LM training (phase 8). (b) bfloat16 gradients against a float32 copy's
+# on one microbatch of arm (a)'s weights, per leaf by relative L2: bfloat16
+# keeps 8 bits, and the query and key weights' gradients come through the
+# softmax's backward, where near-uniform attention (random weights) makes
+# them small differences of large terms: the worst leaf measured 0.186
+# (layers.22.attn.wk) and 0.106 (layers.23.attn.wq), the median 0.031 and
+# 0.0071 (two runs on an H100 80GB HBM3 at 700 W). TOL_TRAIN_GRAD is about
+# twice the worse; the control (one layer of 28 given noise of its own
+# spread) measured 0.94 and 1.04, and must miss it.
+TOL_TRAIN_GRAD = 0.4
+# The loss gap measured 4.96e-4 and 1.43e-3 (loss ~10); TOL_TRAIN_LOSS is
+# twice the larger. It is a guard only: the control moved the loss by
+# 1.43e-3 and 7.55e-3, so the loss cannot tell a perturbed layer from
+# bfloat16's rounding; the gradient check does.
+TOL_TRAIN_LOSS = 3e-3
+# (d) card against CPU at reduced() in float32: losses and gradient norms
+# (the bound of the CPU tests against repro), and parameters after
+# CROSS_STEPS steps within TOL_TRAIN_PARAMS of each leaf's largest value,
+# but for AdamW's sign effect: an element whose gradient is float noise
+# (qwen2's key bias: softmax ignores a shift of a row's scores, so its
+# exact gradient is 0) moves by about lr a step whatever the noise's size,
+# in a direction each side's rounding draws. Such elements may be at most
+# TRAIN_FLIP_SHARE of the parameters, each within the most two AdamW runs
+# can part in CROSS_STEPS steps: 2 sum(lr) (1.01 + wd max|p|), since
+# |m_hat / sqrt(v_hat)| <= 1.002 within 3 steps (Cauchy-Schwarz over the
+# moments' weights).
+TOL_TRAIN_CROSS = 1e-5
+TOL_TRAIN_PARAMS = 1e-4
+TRAIN_FLIP_SHARE = 1e-3
+# The H100 SXM's dense bfloat16 tensor-core peak (NVIDIA data sheet).
+PEAK_BF16 = 989e12
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 and FP32 outside the
 # tensor cores.
@@ -3069,7 +3153,478 @@ def phase_lm(torch) -> dict:
             "launches": launches}
 
 
+# ----------------------------- phase 8: LM training -------------------------
+
+
+def train_data(cfg, batch: int, seq: int, step: int) -> dict:
+    """``TokenStream(TRAIN_SEED)``'s batch at ``step`` (numpy), with the
+    seeded float32 embeddings ``launch.train`` gives an embeddings-in arch."""
+    import numpy as np
+
+    from repro_torch.data.lm import TokenStream
+
+    b = TokenStream(cfg.vocab, batch, seq, seed=TRAIN_SEED).batch_at(step)
+    if cfg.input_embeds:
+        b["embeds"] = np.random.default_rng(step).normal(
+            size=(batch, seq, cfg.d_model)).astype(np.float32)
+        if cfg.family == "vlm":
+            b.pop("tokens")
+    return b
+
+
+def train_ms(ms) -> dict:
+    import numpy as np
+
+    return {"p50": float(np.percentile(ms, 50)), "max": float(max(ms))}
+
+
+def train_device_busy(torch, step, state, batch):
+    """One more ``step`` under ``torch.profiler``: its CUDA kernels' (and
+    copies') summed time and number, that time by kind (``lm_op_kind``)
+    and the LM_TOP_OPS costliest; the step's wall by CUDA events. Returns
+    (state, dict); the dict's device numbers are None where the profiler
+    saw no device activity."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        state, _ = step(state, batch)
+        stop.record()
+        torch.cuda.synchronize()
+    wall = start.elapsed_time(stop)
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = {"profiled_step_ms": wall, "device_ms": None, "device_ops": None,
+           "kinds_ms": None, "top_ops_ms": None}
+    if dev:
+        by_name: Counter = Counter()
+        by_kind: Counter = Counter()
+        for e in dev:
+            ms = e.time_range.elapsed_us() / 1e3
+            by_name[e.name[:LM_OP_NAME]] += ms
+            by_kind[lm_op_kind(e.name)] += ms
+        busy = sum(by_name.values())
+        out.update(device_ms=busy, device_ops=len(dev),
+                   kinds_ms=dict(by_kind.most_common()),
+                   top_ops_ms=dict(by_name.most_common(LM_TOP_OPS)))
+    return state, out
+
+
+def train_bound(n: int, tokens: int) -> dict:
+    """The step's least time on the card, in three parts run one after
+    another: the products, 6 N T flops plus the remat forward's 2 N T, at
+    the bfloat16 dense peak; AdamW's bytes, 24 a parameter (read p in
+    bfloat16, g, m, v in float32, write p, m, v); two microbatches'
+    accumulation, 10 bytes a parameter each (read the bfloat16 gradient,
+    read and write the float32 sum)."""
+    flops_ms = 8 * n * tokens / PEAK_BF16 * 1e3
+    adamw_ms = 24 * n / PEAK_BYTES * 1e3
+    accum_ms = 2 * 10 * n / PEAK_BYTES * 1e3
+    return {"flops_ms": flops_ms, "adamw_ms": adamw_ms, "accum_ms": accum_ms,
+            "bound_ms": flops_ms + adamw_ms + accum_ms}
+
+
+def train_full(torch):
+    """Arm (a): TRAIN_ARCH at full width in bfloat16 (AdamW, two
+    microbatches, remat), random weights from TRAIN_SEED on the card, one
+    untimed step, TRAIN_STEPS timed by CUDA events, one profiled: step ms
+    (p50, max), tokens a second, the allocation peak, each step's loss and
+    gradient norm (finite)."""
+    import math
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.registry import build
+    from repro_torch.train.layout import leaves
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    cfg = ARCHS[TRAIN_ARCH]
+    check(cfg.dtype == "bfloat16" and cfg.optimizer == "adamw" and cfg.remat
+          and cfg.num_microbatches == 2, f"{TRAIN_ARCH}'s config changed")
+    model = build(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(model, torch.Generator(device=DEVICE).manual_seed(
+        TRAIN_SEED), device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(p.numel() for _, p in leaves(state.params))
+    step = make_train_step(model, base_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                           total_steps=TRAIN_TOTAL)
+    batches = [train_data(cfg, TRAIN_BATCH, TRAIN_SEQ, i)
+               for i in range(TRAIN_STEPS + 2)]
+    state, m = step(state, batches[0])  # untimed: cuBLAS and the allocator warm
+    metrics = [m]
+    torch.cuda.synchronize()
+    evs = []
+    t0 = time.perf_counter()
+    for i in range(1, TRAIN_STEPS + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, batches[i])
+        stop.record()
+        evs.append((start, stop))
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ms = [a.elapsed_time(b) for a, b in evs]
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x["loss"]) for x in metrics]
+    gnorms = [float(x["grad_norm"]) for x in metrics]
+    lrs = [float(x["lr"]) for x in metrics]
+    state, busy = train_device_busy(torch, step, state, batches[-1])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    bound = train_bound(n, tokens)
+    at = train_ms(ms)
+    # the profiler slows the host: the busy time is put against the p50
+    # of the unprofiled steps
+    share = None if busy["device_ms"] is None else busy["device_ms"] / at["p50"]
+    cap = torch.cuda.get_device_properties(0).total_memory
+    say(f"[8 lm train] (a) {TRAIN_ARCH}: {n:,} parameters, state initialized "
+        f"in {init_s:.2f} s; {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step in "
+        f"{cfg.num_microbatches} microbatches: step {at['p50']:.2f} ms (p50), "
+        f"{at['max']:.2f} ms (max) over {TRAIN_STEPS} steps ({ms}); "
+        f"{tokens * 1e3 / at['p50']:.1f} tokens/s at p50, host wall "
+        f"{wall:.3f} s; bound {bound['bound_ms']:.2f} ms (flops "
+        f"{bound['flops_ms']:.2f}, AdamW {bound['adamw_ms']:.2f}, "
+        f"accumulation {bound['accum_ms']:.2f}); peak {peak / 1e9:.3f} GB of "
+        f"{cap / 1e9:.1f}; losses {losses}; grad norms {gnorms}")
+    say(f"[8 lm train] (a) torch.profiler over one step "
+        f"({busy['profiled_step_ms']:.2f} ms): device busy "
+        f"{busy['device_ms']} ms in {busy['device_ops']} kernels and copies, "
+        f"{'not measured' if share is None else f'{100 * share:.1f}%'} of the "
+        f"p50 step; by kind {busy['kinds_ms']}; the "
+        f"costliest {busy['top_ops_ms']}")
+    check(all(math.isfinite(x) for x in losses + gnorms),
+          f"{TRAIN_ARCH}: a non-finite loss or gradient norm")
+    check(peak <= cap, f"{TRAIN_ARCH}: the peak exceeds the card")
+    arm = {"arch": TRAIN_ARCH, "params": n, "init_s": init_s,
+           "tokens_a_step": tokens, "step_ms": ms, "step_ms_p50": at["p50"],
+           "step_ms_max": at["max"], "tokens_per_s": tokens * 1e3 / at["p50"],
+           "wall_s": wall, "peak_bytes": peak, "losses": losses,
+           "grad_norms": gnorms, "lrs": lrs, **bound, **busy,
+           "device_busy_share": share}
+    return arm, model, state
+
+
+def train_grads(torch, model, params, batch):
+    """(loss, gradients of every leaf, ms by CUDA events, allocation peak)
+    of ``model.loss_fn`` on ``batch`` (tensors on the card)."""
+    from repro_torch.train.layout import leaves
+
+    flat = [p for _, p in leaves(params)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    loss = model.loss_fn(params, batch)
+    grads = torch.autograd.grad(loss, flat)
+    stop.record()
+    torch.cuda.synchronize()
+    return (float(loss.detach()), list(grads), start.elapsed_time(stop),
+            torch.cuda.max_memory_allocated())
+
+
+def train_rel_l2(torch, grads, ref) -> list:
+    """Each leaf's ||g - ref|| / ||ref|| in float64 sums."""
+    return [float(torch.linalg.vector_norm((g.float() - r).double())
+                  / torch.linalg.vector_norm(r.double()).clamp_min(1e-30))
+            for g, r in zip(grads, ref)]
+
+
+def train_precision(torch, model, params) -> dict:
+    """Arm (b): one microbatch (TRAIN_BATCH / 2 x TRAIN_SEQ) of arm (a)'s
+    weights under deterministic algorithms: the bfloat16 gradients with
+    remat on and off (ms, peak; predicted bit-equal), and against a
+    float32 copy's on the card, per leaf by relative L2 (TOL_TRAIN_GRAD)
+    with the loss gap (TOL_TRAIN_LOSS); the control, a float32 copy with
+    one layer perturbed, must miss the gradient limit."""
+    import dataclasses
+
+    from repro_torch.models.registry import build
+    from repro_torch.train.layout import leaves, tree_map
+    from repro_torch.train.train_step import _batch_tensor
+
+    cfg = model.cfg
+    half = TRAIN_BATCH // cfg.num_microbatches
+    batch = {k: _batch_tensor(v[:half], DEVICE) for k, v in train_data(
+        cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS + 2).items()}
+    out = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for label, c in (("remat", cfg),
+                         ("no_remat", dataclasses.replace(cfg, remat=False))):
+            out[label] = train_grads(torch, build(c), params, batch)
+        equal = all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+                    for a, b in zip(out["remat"][1], out["no_remat"][1]))
+        nr_ms, nr_peak = out.pop("no_remat")[2:]
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = tree_map(lambda p: p.detach().float().requires_grad_(True), params)
+        loss32, g32, ms32, peak32 = train_grads(torch, build(cfg32), p32, batch)
+        loss16, g16 = out["remat"][0], out["remat"][1]
+        errs = train_rel_l2(torch, g16, g32)
+        del g32
+        # the control: noise of its own spread added to each matrix of one
+        # layer of the float32 copy
+        layer = cfg.n_layers // 2
+        gen = torch.Generator(device=DEVICE).manual_seed(TRAIN_SEED + 1)
+        with torch.no_grad():
+            for _, w in leaves(p32["layers"][layer]):
+                if w.dim() >= 2:
+                    w.add_(torch.randn(w.shape, generator=gen, device=DEVICE)
+                           * w.std())
+        lossc, gc, _, _ = train_grads(torch, build(cfg32), p32, batch)
+        errs_c = train_rel_l2(torch, g16, gc)
+        del gc, p32
+    finally:
+        torch.use_deterministic_algorithms(False)
+    names = [".".join(map(str, path)) for path, _ in leaves(params)]
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    gap, gap_c = abs(loss16 - loss32), abs(loss16 - lossc)
+    say(f"[8 lm train] (b) one microbatch ({half} x {TRAIN_SEQ}): bf16 "
+        f"gradients remat {out['remat'][2]:.2f} ms (peak "
+        f"{out['remat'][3] / 1e9:.3f} GB), no remat {nr_ms:.2f} ms (peak "
+        f"{nr_peak / 1e9:.3f} GB); remat on and off "
+        f"bit-equal {equal}; against the float32 copy ({ms32:.2f} ms, peak "
+        f"{peak32 / 1e9:.3f} GB): relative L2 per leaf at most "
+        f"{errs[worst]:.4g} ({names[worst]}), median "
+        f"{sorted(errs)[len(errs) // 2]:.4g} (tol {TOL_TRAIN_GRAD}); loss "
+        f"{loss16:.6f} against {loss32:.6f}, gap {gap:.4g} (tol "
+        f"{TOL_TRAIN_LOSS}); the control (layer {layer} perturbed): at most "
+        f"{max(errs_c):.4g}, loss gap {gap_c:.4g}")
+    check(equal, "remat on and off give other gradient bits")
+    check(max(errs) <= TOL_TRAIN_GRAD, "bfloat16 gradients stray from float32")
+    check(gap <= TOL_TRAIN_LOSS, "the bfloat16 loss strays from float32")
+    check(max(errs_c) > TOL_TRAIN_GRAD,
+          "the gradient check cannot see a perturbed layer")
+    return {"tokens": half * TRAIN_SEQ, "remat_equal": equal,
+            "remat_ms": out["remat"][2], "remat_peak_bytes": out["remat"][3],
+            "no_remat_ms": nr_ms, "no_remat_peak_bytes": nr_peak,
+            "grad_rel_l2_max": errs[worst], "grad_rel_l2_worst_leaf": names[worst],
+            "grad_rel_l2_median": sorted(errs)[len(errs) // 2],
+            "loss_bf16": loss16, "loss_f32": loss32, "loss_gap": gap,
+            "control_grad_rel_l2_max": max(errs_c), "control_loss_gap": gap_c,
+            "f32_ms": ms32, "f32_peak_bytes": peak32}
+
+
+def train_supervised(torch, workdir: str) -> dict:
+    """Arm (c): TRAIN_SSM_ARCH at full width in bfloat16 under
+    ``TrainingSupervisor`` and deterministic algorithms: SUP_STEPS steps of
+    SUP_BATCH x TRAIN_SEQ, an async checkpoint every SUP_EVERY steps, a
+    failure injected before step SUP_FAIL (one restart, replayed from the
+    last checkpoint), against an uninterrupted run from the same weights:
+    the last loss and every leaf bit for bit; the last checkpoint restored
+    into a zeroed state gives every leaf's bits, bfloat16 included."""
+    import os
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed.fault_tolerance import TrainingSupervisor
+    from repro_torch.models.registry import build
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.layout import leaves, tree_map
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    cfg = ARCHS[TRAIN_SSM_ARCH]
+    check(cfg.dtype == "bfloat16", f"{TRAIN_SSM_ARCH}'s config changed")
+    model = build(cfg)
+    batches = {}
+
+    def data_at(i):
+        if i not in batches:
+            batches[i] = train_data(cfg, SUP_BATCH, TRAIN_SEQ, i)
+        return batches[i]
+
+    step = make_train_step(model, base_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                           total_steps=SUP_STEPS)
+
+    def run(label, fail_at):
+        sup = TrainingSupervisor(step, data_at, os.path.join(workdir, label),
+                                 ckpt_every=SUP_EVERY, async_ckpt=True)
+        state = init_state(model, torch.Generator(device=DEVICE).manual_seed(
+            TRAIN_SEED), device=DEVICE)
+        armed = [fail_at is not None]
+
+        def inject(i):
+            if armed[0] and i == fail_at:
+                armed[0] = False
+                raise RuntimeError("injected failure")
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, log = sup.run(state, SUP_STEPS, fail_injector=inject)
+        torch.cuda.synchronize()
+        return sup, state, log, time.perf_counter() - t0
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        sup, state, log, wall = run("faulty", SUP_FAIL)
+        sup0, state0, log0, wall0 = run("clean", None)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+    same = all(torch.equal(bits(a), bits(b))
+               for (_, a), (_, b) in zip(leaves(state), leaves(state0)))
+    template = tree_map(torch.zeros_like, state)
+    restored, at = ckpt.restore(os.path.join(workdir, "faulty"), template)
+    back = ckpt.load_into(template, restored)
+    round_trip = all(torch.equal(bits(a), bits(b))
+                     for (_, a), (_, b) in zip(leaves(back), leaves(state)))
+    n_bf16 = sum(t.dtype == torch.bfloat16 for _, t in leaves(state))
+    replayed = len(log) - SUP_STEPS
+    losses = [x["loss"] for x in log]
+    say(f"[8 lm train] (c) {TRAIN_SSM_ARCH} under TrainingSupervisor: "
+        f"{SUP_STEPS} steps of {SUP_BATCH} x {TRAIN_SEQ}, async checkpoints "
+        f"every {SUP_EVERY}, a failure at step {SUP_FAIL}: restarts "
+        f"{sup.restarts}, {replayed} steps replayed, {wall:.2f} s "
+        f"({wall / len(log) * 1e3:.1f} ms a step with checkpoints); "
+        f"uninterrupted {wall0:.2f} s; last loss {log[-1]['loss']!r} against "
+        f"{log0[-1]['loss']!r}; every leaf equal {same}; checkpoint of step "
+        f"{at} restored into a zeroed state bit for bit {round_trip} "
+        f"({n_bf16} bfloat16 leaves); losses {losses}")
+    check(sup.restarts == 1 and sup0.restarts == 0, "restarts miscounted")
+    check(replayed == SUP_FAIL - (SUP_FAIL // SUP_EVERY) * SUP_EVERY,
+          "the replay did not start from the last checkpoint")
+    check(log[-1]["loss"] == log0[-1]["loss"] and same,
+          "the restarted run parts from the uninterrupted one")
+    check(at == SUP_STEPS and round_trip and n_bf16 > 0,
+          "a checkpoint did not round-trip bit for bit")
+    return {"arch": TRAIN_SSM_ARCH, "restarts": sup.restarts,
+            "replayed_steps": replayed, "wall_s": wall, "clean_wall_s": wall0,
+            "last_loss": log[-1]["loss"], "clean_last_loss": log0[-1]["loss"],
+            "bit_equal": same, "round_trip": round_trip,
+            "bf16_leaves": n_bf16, "losses": losses}
+
+
+def train_params_apart(torch, a_params, b_params, lrs, adamw: bool) -> dict:
+    """How far two runs' parameters part: the largest difference over each
+    leaf's largest value; the elements beyond TOL_TRAIN_PARAMS of it
+    (``far``) and their largest absolute difference, against the most two
+    AdamW runs can part (``flip_bound``; see TRAIN_FLIP_SHARE)."""
+    from repro_torch.train.layout import leaves
+
+    rel, far, n, far_abs, pmax = 0.0, 0, 0, 0.0, 0.0
+    for (_, a), (_, b) in zip(leaves(a_params), leaves(b_params)):
+        a, b = a.detach().float().cpu(), b.detach().float().cpu()
+        d = (a - b).abs()
+        top = float(a.abs().max().clamp_min(1e-30))
+        rel = max(rel, float(d.max()) / top)
+        beyond = d > TOL_TRAIN_PARAMS * top
+        far += int(beyond.sum())
+        n += a.numel()
+        if bool(beyond.any()):
+            far_abs = max(far_abs, float(d[beyond].max()))
+        pmax = max(pmax, top)
+    bound = 2 * sum(lrs) * (1.01 + 0.1 * pmax) if adamw else 0.0
+    return {"params_rel_err": rel, "far": far, "far_share": far / n,
+            "far_max_abs": far_abs, "flip_bound": bound}
+
+
+def train_cross_arch(torch, name: str, compression=None) -> dict:
+    """Arm (d) for one arch at ``reduced()`` (float32): one state drawn on
+    the CPU and copied to the card, CROSS_STEPS steps on each: losses and
+    gradient norms within TOL_TRAIN_CROSS; the parameters within
+    TOL_TRAIN_PARAMS of each leaf's largest value but for AdamW's sign
+    effect (TRAIN_FLIP_SHARE)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.registry import build
+    from repro_torch.train.layout import tree_map
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    cfg = ARCHS[name].reduced()
+    model = build(cfg)
+    cpu = init_state(model, torch.Generator().manual_seed(TRAIN_SEED),
+                     grad_compression=compression, device="cpu")
+    card = tree_map(lambda t: t.detach().to(DEVICE, copy=True).requires_grad_(
+        t.requires_grad), cpu)
+    step = make_train_step(model, base_lr=1e-3, warmup=1, total_steps=10,
+                           grad_compression=compression)
+    worst, lrs = 0.0, []
+    for i in range(CROSS_STEPS):
+        batch = train_data(cfg, CROSS_B, CROSS_S, i)
+        cpu, mc = step(cpu, batch)
+        card, mg = step(card, batch)
+        lrs.append(float(mc["lr"]))
+        for k in ("loss", "grad_norm"):
+            a, b = float(mc[k]), float(mg[k])
+            worst = max(worst, abs(a - b) / abs(a))
+    adamw = cfg.optimizer == "adamw"
+    apart = train_params_apart(torch, cpu.params, card.params, lrs, adamw)
+    label = name + (f" ({compression})" if compression else "")
+    say(f"[8 lm train] (d) {label}: {CROSS_STEPS} steps ({cfg.optimizer}), "
+        f"loss and grad norm card against CPU at most {worst:.3g} relative "
+        f"(tol {TOL_TRAIN_CROSS}); parameters {apart['params_rel_err']:.3g} "
+        f"of each leaf's largest; {apart['far']} elements beyond "
+        f"{TOL_TRAIN_PARAMS} of it ({apart['far_share']:.3g} of all; tol "
+        f"{TRAIN_FLIP_SHARE if adamw else 0}), at most "
+        f"{apart['far_max_abs']:.3g} apart (the sign effect's bound "
+        f"{apart['flip_bound']:.3g})")
+    check(worst <= TOL_TRAIN_CROSS, f"{label}: losses differ card/CPU")
+    check(apart["far_share"] <= (TRAIN_FLIP_SHARE if adamw else 0.0)
+          and apart["far_max_abs"] <= apart["flip_bound"],
+          f"{label}: parameters differ card/CPU")
+    return {"optimizer": cfg.optimizer, "metrics_rel_err": worst, **apart}
+
+
+def phase_train(torch) -> dict:
+    """Phase 8: LM training on the card (see the module docstring). Each
+    arm's launch counts are set to 0 just before it and read just after;
+    the training path launches none of the five kernels."""
+    import shutil
+
+    from repro_torch.configs import ARCHS
+
+    launches = {}
+
+    def counted(arm, fn, *args):
+        zero_launches()
+        out = fn(*args)
+        launches[arm] = launches_now()
+        check(sum(launches[arm].values()) == 0,
+              f"training arm ({arm}) launched a search kernel: {launches[arm]}")
+        return out
+
+    torch.cuda.empty_cache()
+    a, model, state = counted("a", train_full, torch)
+    params = state.params
+    del state  # the optimizer's moments go; arm (b) needs the weights only
+    torch.cuda.empty_cache()
+    b = counted("b", train_precision, torch, model, params)
+    del model, params
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        c = counted("c", train_supervised, torch, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    def cross():
+        out = {name: train_cross_arch(torch, name) for name in sorted(ARCHS)}
+        out[f"{TRAIN_ARCH} int8"] = train_cross_arch(torch, TRAIN_ARCH, "int8")
+        return out
+
+    d = counted("d", cross)
+    return {"arms": {"a": a, "b": b, "c": c, "d": d, "launches": launches},
+            "launches": launches}
+
+
 def main() -> int:
+    import os
+
+    # Phase 8 runs arms under torch.use_deterministic_algorithms, which
+    # needs cuBLAS's workspace fixed before CUDA starts.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -3131,6 +3686,7 @@ def main() -> int:
     timed("phase 5 stream cross-check", phase_stream_cross, torch, cfg)
     kernels = timed("phase 6", phase_times, torch, kb, ka, kd, kce, loop)
     lm = timed("phase 7 lm serve", phase_lm, torch)
+    train = timed("phase 8 lm train", phase_train, torch)
     # Launches on the path that runs each kernel: host rounds (A, B), the
     # persistent sweep (C), the slab arms (D, E).
     launches = dict(host["launches"])
@@ -3155,11 +3711,14 @@ def main() -> int:
         k["sharded_launches"] = shard_launches.get(k["name"], 0)
         k["lm_launches"] = {arm: n[k["name"]]
                             for arm, n in lm["launches"].items()}
+        k["train_launches"] = {arm: n[k["name"]]
+                               for arm, n in train["launches"].items()}
     say(f"total {time.perf_counter() - t_all:.2f} s")
     say(json.dumps({"stream": stream["arms"]}))
     say(json.dumps({"resilient": resil["arms"]}))
     say(json.dumps({"sharded": shard["arms"]}))
     say(json.dumps({"lm_serve": lm["arms"]}))
+    say(json.dumps({"lm_train": train["arms"]}))
     say(json.dumps({"kernels": kernels}))
     say(card["smi"])
     say(json.dumps({"ok": True, "device": {

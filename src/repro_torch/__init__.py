@@ -25,9 +25,12 @@ LM serving is ported too: the four model families' forward passes,
 caches, prefill and decode (``models``), the registry
 (``models.registry.build``), ``serve.generate`` and ``launch.serve``, with
 the ten architecture configs (``configs.ARCHS``). It reaches no Pallas
-kernel in ``repro`` and runs on PyTorch ops. LM training (optimizers, the
-train step, sharding, dry-run) is not ported yet (ROADMAP.md Queue 1
-items 7b-7d).
+kernel in ``repro`` and runs on PyTorch ops. So does LM training: the
+optimizers, gradient compression and the microbatched train step
+(``train``), the token stream (``data.lm``), ``TrainingSupervisor``
+(``distributed.fault_tolerance``) and ``launch.train``, on one device.
+Sharding, the dry-run and the roofline tooling are not ported yet
+(ROADMAP.md Queue 1 items 7c-7d).
 
 Entry points take a ``device`` argument and run on CUDA unless the caller
 passes ``device="cpu"``; with no device given and no CUDA present they

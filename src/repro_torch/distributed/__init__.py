@@ -1,5 +1,6 @@
-"""Distributed execution (port of ``repro.distributed``): the search-side
-fault-tolerance primitives and the activation-sharding anchors
-(``hints``, identities on one device). Sharding and the LM trainer's
-supervision are not ported yet (ROADMAP.md Queue 1 items 7b and 7c).
+"""Distributed execution (port of ``repro.distributed``): the
+fault-tolerance primitives, ``TrainingSupervisor`` among them, and the
+activation-sharding anchors (``hints``, identities on one device).
+Sharding and ``elastic_reshard`` are not ported yet (ROADMAP.md Queue 1
+item 7c).
 """

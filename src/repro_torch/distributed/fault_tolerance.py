@@ -18,12 +18,15 @@
     default seed, so both packages draw the same sleeps.
   * ``hedge_race`` — the deterministic host emulation of racing backup
     attempts against a straggling primary.
+  * ``TrainingSupervisor`` — checkpoint/restart around the LM train step.
 
-Pure Python and numpy: the callers (``search.resilient``,
-``search.pipeline.HedgedExecutor``, ``serve.supervisor``) make an
-attempt's time include its device work before they read the clock.
-``repro``'s ``TrainingSupervisor`` and ``elastic_reshard`` drive the LM
-trainer and wait for it (ROADMAP.md Queue 1 item 7b).
+Pure Python and numpy but for the supervisor's restore: the callers
+(``search.resilient``, ``search.pipeline.HedgedExecutor``,
+``serve.supervisor``) make an attempt's time include its device work
+before they read the clock, and ``TrainingSupervisor`` reads a step's
+loss on the host before it does. ``repro``'s ``elastic_reshard`` (a
+``device_put`` across meshes) comes with the sharding slice (ROADMAP.md
+Queue 1 item 7c).
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 
 from repro_torch.core import guards
+from repro_torch.train import checkpoint as ckpt_lib
 
 TRANSIENT = (RuntimeError, ValueError, OSError)
 GUARD_ERRORS = (guards.SearchInputError, guards.StreamStateError)
@@ -293,3 +297,95 @@ def hedge_race(
         effective_dt=best_eff,
         completions=tuple(completions),
     )
+
+
+class TrainingSupervisor:
+    """Checkpoint/restart wrapper around a train step (``train_step``'s
+    in-place step, or any ``(state, batch) -> (state, metrics)``).
+
+    A step ends when its loss is read on the host (``repro`` waits with
+    ``jax.block_until_ready``), so the straggler monitor times the device
+    work. A restore copies the checkpoint into the state's own tensors: each
+    leaf keeps its device, dtype (bfloat16 bit for bit) and place in the
+    structure.
+    """
+
+    def __init__(
+        self,
+        train_step: Callable,
+        data_at: Callable[[int], Any],
+        ckpt_dir: str,
+        ckpt_every: int = 50,
+        max_retries: int = 3,
+        async_ckpt: bool = True,
+        keep: int = 3,
+    ):
+        self.train_step = train_step
+        self.data_at = data_at
+        self.ckpt_dir = ckpt_dir
+        self.ckpt_every = ckpt_every
+        self.max_retries = max_retries
+        self.monitor = StragglerMonitor()
+        self.restarts = 0
+        self._async = (
+            ckpt_lib.AsyncCheckpointer(ckpt_dir, keep=keep) if async_ckpt else None
+        )
+        self.keep = keep
+
+    def _save(self, state, step: int):
+        if self._async is not None:
+            self._async.submit(state, step)
+        else:
+            ckpt_lib.save(self.ckpt_dir, state, step)
+            ckpt_lib.prune_old(self.ckpt_dir, self.keep)
+
+    def resume_or(self, state):
+        """Restore the latest checkpoint into ``state`` if one exists;
+        returns ``(state, step)``."""
+        if self._async is not None:
+            # Write barrier: without it, latest_step can miss a submitted-
+            # but-uncommitted step and replay would rewind past real
+            # progress (same rule as SearchSupervisor._barrier).
+            self._async.wait()
+        step = ckpt_lib.latest_step(self.ckpt_dir)
+        if step is None:
+            return state, 0
+        restored, step = ckpt_lib.restore(self.ckpt_dir, state)
+        return ckpt_lib.load_into(state, restored), step
+
+    def run(self, state, n_steps: int, fail_injector: Callable[[int], None] | None = None):
+        """Run to ``n_steps`` total steps with checkpoint/restart semantics.
+
+        ``fail_injector(step)`` may raise to simulate node failure; the
+        supervisor restores the last checkpoint and replays deterministically.
+        """
+        state, step = self.resume_or(state)
+        metrics_log = []
+        retries = 0
+        while step < n_steps:
+            try:
+                if fail_injector is not None:
+                    fail_injector(step)
+                t0 = time.time()
+                batch = self.data_at(step)
+                state, metrics = self.train_step(state, batch)
+                float(metrics["loss"])  # the step's device work is done
+                self.monitor.observe(step, time.time() - t0)
+                step += 1
+                retries = 0
+                metrics_log.append({k: float(v) for k, v in metrics.items()})
+                if step % self.ckpt_every == 0:
+                    self._save(state, step)
+            except TRANSIENT as e:
+                self.restarts += 1
+                retries += 1
+                if retries > self.max_retries:
+                    raise RuntimeError(
+                        f"exceeded {self.max_retries} retries at step {step}"
+                    ) from e
+                state, step = self.resume_or(state)
+        self._save(state, step)
+        if self._async is not None:
+            self._async.close()
+            self._async = ckpt_lib.AsyncCheckpointer(self.ckpt_dir, keep=self.keep)
+        return state, metrics_log

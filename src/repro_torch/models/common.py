@@ -23,9 +23,12 @@ class ParamTree(nn.Module):
     """A nested parameter dict as a module, read as ``repro`` reads its
     pytree: ``p["wq"]``, ``"bq" in p``, ``p["layers"][i]``.
 
-    A tensor entry becomes a parameter (``requires_grad=False``: this
-    slice serves and does not train), a dict a ``ParamTree`` and a list or
-    tuple an ``nn.ModuleList``. ``.to(device)`` moves the whole tree.
+    A tensor entry becomes a parameter, a dict a ``ParamTree`` and a list
+    or tuple an ``nn.ModuleList``. ``.to(device)`` moves the whole tree.
+    The parameters are frozen (``requires_grad=False``), so serving
+    records no graph: trainability belongs to the train state, whose
+    ``train.train_step.init_state`` (or ``interop.train_state_from_numpy``)
+    takes the same tensors out with ``plain`` and marks them.
     """
 
     def __init__(self, tree: dict):
@@ -42,6 +45,42 @@ class ParamTree(nn.Module):
 
     def __contains__(self, key: str) -> bool:
         return key in self._parameters or key in self._modules
+
+
+def plain(tree):
+    """A ``ParamTree`` as nested dicts and lists of its tensors (the same
+    storage); any other tree as it is."""
+    if isinstance(tree, nn.ModuleList):
+        return [plain(m) for m in tree]
+    if isinstance(tree, nn.Module):
+        out = dict(tree._parameters)
+        out.update({k: plain(m) for k, m in tree._modules.items()})
+        return out
+    return tree
+
+
+def remat(cfg, fn):
+    """``fn`` under activation checkpointing as ``cfg.remat`` asks, while
+    autograd records (``repro``'s ``jax.checkpoint`` of a layer's body):
+    its activations are dropped after the forward and recomputed in the
+    backward. ``remat_policy="dots"`` keeps the outputs of the products
+    without batch dimensions (``aten.mm`` / ``addmm``, the weight
+    products; ``dots_with_no_batch_dims_saveable``) and recomputes the
+    rest, batched ``bmm`` included. Under ``no_grad`` (serving) ``fn`` runs
+    as it is."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+    from torch.utils.checkpoint import checkpoint
+
+    kw = {"context_fn": _save_dots} if cfg.remat_policy == "dots" else {}
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
+def _save_dots():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return create_selective_checkpoint_contexts(
+        [torch.ops.aten.mm.default, torch.ops.aten.addmm.default])
 
 
 def _node(value) -> nn.Module:

@@ -6,13 +6,15 @@ the fields it needs. ``reduced()`` derives the small same-family config
 used by the CPU tests.
 
 The fields and defaults are ``repro``'s, so one config means the same
-model in both packages. The compile-time knobs ``remat``,
-``remat_policy``, ``scan_layers``, ``tp_attn_dim`` and
-``num_microbatches`` shape how ``repro`` traces and shards a step; they
-change nothing on the port's serving path, which accepts them for parity
-and does not read them (as ``configs/dtw_search.py`` does with
-``rows_per_step``). ``optimizer`` and ``moe_impl="ep"`` wait for the
-training and sharding slices: ``moe_impl`` falls back to the sort-based
+model in both packages. Training reads ``remat`` and ``remat_policy``
+(activation checkpointing of each layer while autograd records,
+``models.common.remat``), ``num_microbatches`` (``train.train_step``) and
+``optimizer`` (``train.optimizer.init_opt`` / ``apply_opt``); serving runs
+under ``no_grad`` and none of them changes it. ``scan_layers`` and
+``tp_attn_dim`` shape how ``repro`` traces and shards a step; the port
+accepts them for parity and does not read them (as
+``configs/dtw_search.py`` does with ``rows_per_step``). ``moe_impl="ep"``
+waits for the sharding slice: it falls back to the sort-based
 ``mlp.moe`` while no mesh is set, as in ``repro``.
 """
 from __future__ import annotations
@@ -68,7 +70,7 @@ class ModelConfig:
     # numerics / training
     dtype: str = "bfloat16"         # parameter/activation dtype
     remat: bool = True              # activation checkpointing per layer
-    remat_policy: str = "full"      # full | dots (repro only)
+    remat_policy: str = "full"      # full | dots
     scan_layers: bool = True        # scan-over-layers (repro only)
     optimizer: str = "adamw"        # adamw | adafactor
     num_microbatches: int = 1

@@ -24,6 +24,7 @@ from repro_torch.models.common import (
     embed_init,
     linear_scan,
     pdtype,
+    remat,
     rms_norm,
     softplus,
 )
@@ -177,10 +178,17 @@ def init_params(gen: torch.Generator, cfg, device=None) -> ParamTree:
 
 
 def forward(params, cfg, tokens, embeds=None):
+    """Tokens -> logits; each layer under ``common.remat`` when
+    ``cfg.remat``."""
     x = hints.constrain_acts(params["embed"][tokens])
-    for lp in params["layers"]:
+
+    def body(lp, x):
         y, _ = layer_forward(lp, x, cfg)
-        x = hints.constrain_acts(x + y)
+        return hints.constrain_acts(x + y)
+
+    body = remat(cfg, body)
+    for lp in params["layers"]:
+        x = body(lp, x)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = hints.constrain_logits(x @ params["embed"].T)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)

@@ -38,6 +38,7 @@ from repro_torch.models.common import (
     gelu,
     linear_scan,
     pdtype,
+    remat,
     rms_norm,
     softplus,
 )
@@ -162,10 +163,15 @@ def forward(params, cfg, tokens, embeds=None):
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     pattern = _pattern(cfg)
-    for gp in params["groups"]:
+
+    def body(gp, x):  # one pattern group, under remat as repro's scan body
         for i, kind in enumerate(pattern):
             x = _apply_block(cfg, x, positions, gp[i], kind)
-        x = hints.constrain_acts(x)
+        return hints.constrain_acts(x)
+
+    body = remat(cfg, body)
+    for gp in params["groups"]:
+        x = body(gp, x)
     for i, p in enumerate(params["remainder"]):
         x = _apply_block(cfg, x, positions, p, pattern[i % len(pattern)])
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -28,6 +28,7 @@ from repro_torch.models.common import (
     cross_entropy_loss,
     embed_init,
     pdtype,
+    remat,
     rms_norm,
     rope,
 )
@@ -91,16 +92,22 @@ def _positions(x):
 
 
 def forward(params, cfg, tokens, embeds=None):
-    """Token (or embedding) sequence -> logits (B, S, V) and aux loss."""
+    """Token (or embedding) sequence -> logits (B, S, V) and aux loss.
+    Each layer runs under ``common.remat`` when ``cfg.remat``."""
     x = _embed_in(params, cfg, tokens, embeds)
     positions = _positions(x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in params["layers"]:
+
+    def block(lp, x):
         h = attention(lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps),
                       positions, cfg)
         x = x + h
         h, a = _ffn(cfg, lp, x)
-        x = hints.constrain_acts(x + h)
+        return hints.constrain_acts(x + h), a
+
+    block = remat(cfg, block)
+    for lp in params["layers"]:
+        x, a = block(lp, x)
         aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = hints.constrain_logits(x @ _unembed(params, cfg))

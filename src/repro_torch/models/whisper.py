@@ -28,6 +28,7 @@ from repro_torch.models.common import (
     cross_entropy_loss,
     embed_init,
     pdtype,
+    remat,
     rms_norm,
     sinusoidal_positions,
 )
@@ -73,14 +74,19 @@ def encode(params, cfg, frames: torch.Tensor) -> torch.Tensor:
     x = x + sinusoidal_positions(s, cfg.d_model, x.device)[None].to(x.dtype)
     x = hints.constrain_acts(x)
     positions = _positions(b, s, x.device)
-    for lp in params["enc_layers"]:
+
+    def body(lp, x):
         h = attention(
             lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), positions, cfg,
             causal=False, use_rope=False,
         )
         x = x + h
         x = x + mlp(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps))
-        x = hints.constrain_acts(x)
+        return hints.constrain_acts(x)
+
+    body = remat(cfg, body)
+    for lp in params["enc_layers"]:
+        x = body(lp, x)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -92,7 +98,8 @@ def decode_train(params, cfg, enc_out: torch.Tensor,
     x = x + sinusoidal_positions(s, cfg.d_model, x.device)[None].to(x.dtype)
     x = hints.constrain_acts(x)
     positions = _positions(b, s, x.device)
-    for lp in params["dec_layers"]:
+
+    def body(lp, x, enc_out):
         h = attention(
             lp["self_attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), positions,
             cfg, use_rope=False,
@@ -104,7 +111,11 @@ def decode_train(params, cfg, enc_out: torch.Tensor,
         )
         x = x + h
         x = x + mlp(lp["mlp"], rms_norm(x, lp["ln3"], cfg.norm_eps))
-        x = hints.constrain_acts(x)
+        return hints.constrain_acts(x)
+
+    body = remat(cfg, body)
+    for lp in params["dec_layers"]:
+        x = body(lp, x, enc_out)
     x = rms_norm(x, params["dec_norm"], cfg.norm_eps)
     return hints.constrain_logits(x @ params["embed"].T)
 

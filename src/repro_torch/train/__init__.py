@@ -1,4 +1,6 @@
-"""Training-side utilities (port of ``repro.train``): the checkpoint store
-that ``serve.supervisor.SearchSupervisor`` writes. The LM trainer is not
-ported yet (ROADMAP.md Queue 1 item 7b).
+"""Training (port of ``repro.train``): the optimizers (AdamW, Adafactor),
+int8 gradient compression with error feedback, the microbatched train
+step, ``repro``'s stacked-leaf layout over the port's per-layer lists
+(``layout``), and the checkpoint store that ``TrainingSupervisor`` and
+``serve.supervisor.SearchSupervisor`` write.
 """

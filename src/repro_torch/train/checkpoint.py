@@ -1,15 +1,21 @@
 """Atomic, async-capable checkpoints (port of ``repro/train/checkpoint.py``).
 
-Layout, the same as ``repro``'s so that either package resumes the other's
+Layout, the same as ``repro``'s so that either package reads the other's
 directories: ``<dir>/step_<N:08d>/`` holds one ``.npy`` per leaf, named by
-its key path (dict keys sorted, sequence items by index, the parts joined
-with ``.``), and ``manifest.json`` (the step and the leaf index). Commit
-protocol: write into ``step_<N>.tmp``, then ``rename``; a half-written
-checkpoint is never visible.
+its key path as ``jax.tree_util`` names it (dict keys sorted, sequence
+items by index, a NamedTuple's fields as ``.<field>``, the parts joined
+with ``.``: ``TrainState(params={"b": ...}, step=...)`` gives
+``.params.b`` and ``.step``), and ``manifest.json`` (the step and the leaf
+index). Commit protocol: write into ``step_<N>.tmp``, then ``rename``; a
+half-written checkpoint is never visible.
 
-A tree is nested dicts, lists and tuples whose leaves are numpy arrays,
-tensors (any device) or scalars; ``None`` holds no leaf. ``restore``
-returns numpy arrays in the template leaf's dtype.
+A tree is nested dicts, lists, tuples and NamedTuples whose leaves are
+numpy arrays, tensors (any device) or scalars; ``None`` holds no leaf.
+A bfloat16 tensor is written as ``repro`` writes a bfloat16 array: its raw
+16-bit patterns as a ``|V2`` array (numpy has no bfloat16 type).
+``restore`` returns numpy arrays in the template leaf's dtype, and for a
+bfloat16 leaf that ``|V2`` array of bit patterns; ``load_into`` copies a
+restored tree into a tree of tensors (the same bits for bfloat16).
 
 ``AsyncCheckpointer`` writes on a worker thread. ``submit`` copies every
 leaf on the caller's thread first (``repro`` takes its snapshot with
@@ -38,11 +44,12 @@ def _map(fn, tree, path=()):
         return None
     if isinstance(tree, dict):
         return {k: _map(fn, tree[k], path + (str(k),)) for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):  # a NamedTuple
+        return type(tree)(*(_map(fn, getattr(tree, f), path + (f".{f}",))
+                            for f in tree._fields))
     if isinstance(tree, (list, tuple)):
         items = [_map(fn, v, path + (str(i),)) for i, v in enumerate(tree)]
-        if isinstance(tree, list):
-            return items
-        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+        return items if isinstance(tree, list) else tuple(items)
     return fn("/".join(path).replace("/", "."), tree)
 
 
@@ -53,21 +60,68 @@ def _flatten(tree) -> list:
     return named
 
 
+BF16_BITS = np.dtype("V2")  # how numpy stores a bfloat16 array's bits
+
+
 def _to_host(leaf, copy: bool = False) -> np.ndarray:
-    """A leaf as a numpy array; ``copy`` makes it independent of ``leaf``."""
+    """A leaf as a numpy array (a bfloat16 tensor as its ``|V2`` bit
+    patterns); ``copy`` makes it independent of ``leaf``."""
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach()
+        bf16 = leaf.dtype == torch.bfloat16
+        if bf16:
+            leaf = leaf.view(torch.int16)
         if leaf.device.type != "cpu":
-            return leaf.cpu().numpy()  # the copy to the host is fresh memory
-        arr = leaf.numpy()
-        return arr.copy() if copy else arr
+            arr = leaf.cpu().numpy()  # the copy to the host is fresh memory
+        else:
+            arr = leaf.numpy().copy() if copy else leaf.numpy()
+        return arr.view(BF16_BITS) if bf16 else arr
     return np.array(leaf, copy=True) if copy else np.asarray(leaf)
 
 
 def _np_dtype(leaf) -> np.dtype:
     if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            return BF16_BITS
         return torch.empty((), dtype=leaf.dtype).numpy().dtype
     return np.asarray(leaf).dtype
+
+
+def _as_dtype(arr: np.ndarray, dtype: np.dtype) -> np.ndarray:
+    """``arr`` in ``dtype``; into ``|V2`` (bfloat16 bits) a float array is
+    rounded to bfloat16 by torch, and ``|V2`` stays as it is."""
+    if dtype == BF16_BITS and arr.dtype != BF16_BITS:
+        t = torch.as_tensor(np.asarray(arr, dtype=np.float32))
+        return t.to(torch.bfloat16).view(torch.int16).numpy().view(BF16_BITS)
+    return np.asarray(arr, dtype=dtype)
+
+
+def _host_tensor(arr, dtype: torch.dtype) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if dtype == torch.bfloat16:
+        bits = _as_dtype(arr, BF16_BITS).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return torch.as_tensor(np.array(arr)).to(dtype)
+
+
+@torch.no_grad()
+def load_into(template, restored):
+    """``restore``'s tree copied into ``template``'s tensors in place (each
+    keeps its device, dtype and ``requires_grad``); returns ``template``
+    with those tensors, and ``restored``'s leaf where ``template`` holds
+    no tensor."""
+    if template is None:
+        return None
+    if isinstance(template, torch.Tensor):
+        return template.copy_(_host_tensor(restored, template.dtype))
+    if isinstance(template, dict):
+        return {k: load_into(v, restored[k]) for k, v in template.items()}
+    if isinstance(template, tuple) and hasattr(template, "_fields"):
+        return type(template)(*(load_into(a, b)
+                                for a, b in zip(template, restored)))
+    if isinstance(template, (list, tuple)):
+        return type(template)(load_into(a, b) for a, b in zip(template, restored))
+    return restored
 
 
 def save(ckpt_dir: str, tree, step: int) -> str:
@@ -115,7 +169,8 @@ def latest_step(ckpt_dir: str) -> int | None:
 
 def restore(ckpt_dir: str, template, step: int | None = None):
     """Restore into the structure of ``template``; returns ``(tree, step)``
-    with numpy leaves in the template leaves' dtypes."""
+    with numpy leaves in the template leaves' dtypes (a bfloat16 leaf as
+    its ``|V2`` bit patterns: ``load_into`` makes it a tensor again)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -126,8 +181,8 @@ def restore(ckpt_dir: str, template, step: int | None = None):
     by_name = {e["name"]: e["file"] for e in manifest["leaves"]}
 
     def load(name, leaf):
-        return np.asarray(np.load(os.path.join(d, by_name[name])),
-                          dtype=_np_dtype(leaf))
+        return _as_dtype(np.load(os.path.join(d, by_name[name])),
+                         _np_dtype(leaf))
 
     return _map(load, template), step
 

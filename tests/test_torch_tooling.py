@@ -6,6 +6,8 @@
   stream on the CPU at a tiny size, and its own exactness checks pass;
 * ``examples/feature_retrieval_torch.py`` encodes token windows with
   Mamba2 and retrieves the corrupted entry with EAPrunedDTW on the CPU;
+* ``examples/train_lm_torch.py`` trains full-width Mamba2 at depth 1 for a
+  few steps on the CPU, its loss going down;
 * the examples default to the card (they raise without one);
 * ``scripts/lint_port.py`` passes on the repository and catches a planted
   ``jax`` or ``repro`` import, a lazy one too.
@@ -67,9 +69,19 @@ def test_feature_retrieval_torch_runs_on_the_cpu():
     assert "early-abandoned" in out.stdout
 
 
+def test_train_lm_torch_runs_on_the_cpu(tmp_path):
+    out = _run("examples/train_lm_torch.py", "--device", "cpu", "--steps",
+               "12", "--batch", "2", "--seq", "32", "--depth", "1", "--ckpt",
+               str(tmp_path))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "training mamba2-130m depth=1: 42.4M params" in out.stdout
+    assert "12 steps in" in out.stdout and "checkpoints in" in out.stdout
+
+
 @pytest.mark.parametrize("name", ["quickstart_torch",
                                   "similarity_search_torch",
-                                  "feature_retrieval_torch"])
+                                  "feature_retrieval_torch",
+                                  "train_lm_torch"])
 def test_examples_default_to_the_card(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
