@@ -183,17 +183,36 @@ Drives ``repro_torch`` (never JAX, never ``repro``) on ``cuda:0``:
      from one state: losses and gradient norms within ``TOL_TRAIN_CROSS``,
      parameters within ``TOL_TRAIN_PARAMS`` (int8: quantization rounds
      near-halves either way, so its parameters are reported only);
-  9. a ``{"stream": {...}}`` line of the streaming arms' numbers, a
+  9. sharded LM training ("phase 9 lm sharded"), on a group of one on
+     NCCL and a ``make_local_mesh(1)`` mesh, launching none of the five
+     kernels (counted per arm): (a) phase 8 (a)'s Llama-3.2-3B run placed
+     by ``launch.train.placed_state`` (``make_state_specs``: DTensors),
+     each batch by ``make_batch_specs``, the activation anchors set:
+     4 steps of phase 8 (a)'s batches, losses and gradient norms within
+     ``TOL_TRAIN_CROSS`` of phase 8 (a)'s first 4 (bit-equality
+     reported), step ms (p50) beside phase 8 (a)'s, the peak, the leaves
+     by placement; (b) kimi-k2 ``reduced()`` in float32 with nothing
+     dropped, ``moe_impl="ep"`` against ``"dense"``: forward logits within
+     ``TOL_LM_CROSS``, one step within ``TOL_TRAIN_CROSS``; (c)
+     ``launch.train`` on Llama's ``reduced()`` on the card under
+     deterministic algorithms: its main (one rank: the unplaced state),
+     then its loop on the mesh of one, 6 steps uninterrupted and with a
+     failure injected at step 4 through the supervisor's
+     ``fail_injector``: one restart, the uninterrupted run's last loss bit
+     for bit, the main's within ``TOL_TRAIN_CROSS``;
+ 10. a ``{"stream": {...}}`` line of the streaming arms' numbers, a
      ``{"resilient": {...}}`` line of the host layer's arms, a
      ``{"sharded": {...}}`` line of the sharded arms, a
      ``{"lm_serve": {...}}`` line of phase 7's arms, a
      ``{"lm_train": {...}}`` line of phase 8's arms, a
+     ``{"lm_sharded": {...}}`` line of phase 9's arms, a
      ``{"kernels": [...]}`` line (``launches`` on the offline path that runs
      each kernel, ``stream_launches`` in streaming arm (a) for A and B and
      arm (c) for D, ``resilient_launches`` in arm (a) of phase 4 resilient
      for A and B and arm (b) for C, ``sharded_launches`` in phase 4
      sharded's arm (a), fused for A and B and slab for D, ``lm_launches``
-     in phase 7 and ``train_launches`` in phase 8, all 0), the card's name
+     in phase 7, ``train_launches`` in phase 8 and
+     ``sharded_train_launches`` in phase 9, all 0), the card's name
      and power limit; the last line is ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result.
@@ -313,6 +332,25 @@ SUP_FAIL = 9
 CROSS_STEPS = 3
 CROSS_B = 4
 CROSS_S = 16
+# Sharded LM training (phase 9), on a group of one on NCCL and a
+# make_local_mesh(1) mesh, every arm through the placed path: (a)
+# TRAIN_ARCH as phase 8 (a) runs it (its seed, batches and schedule), placed
+# by launch.train.placed_state, SHARDED_STEPS steps (all but the first
+# timed by CUDA events); (b) EP_ARCH at reduced() in float32 with nothing
+# dropped (capacity_factor EP_CF), moe_impl="ep" against "dense" on
+# EP_BATCH x EP_SEQ tokens: forward logits and one step; (c)
+# launch.train on TRAIN_ARCH's reduced(), SHARDED_SUP_STEPS steps of 4 x
+# 16 with a checkpoint every SHARDED_SUP_EVERY: its main (unplaced on one
+# rank), then its loop on the mesh of one uninterrupted and with a failure
+# injected at SHARDED_SUP_FAIL.
+SHARDED_STEPS = 4
+EP_ARCH = "kimi-k2-1t-a32b"
+EP_CF = 100.0
+EP_BATCH = 8
+EP_SEQ = 16
+SHARDED_SUP_STEPS = 6
+SHARDED_SUP_EVERY = 2
+SHARDED_SUP_FAIL = 4
 # Phase 3 holds the counter variants of kernels A and D against the plain
 # version run on each round's lanes followed by COUNT_COPIES copies of them
 # under ub = BIG (which never abandon): 65 x 2,048 = 133,120 rows, more
@@ -3619,6 +3657,270 @@ def phase_train(torch) -> dict:
             "launches": launches}
 
 
+def sharded_full(torch, ref: dict) -> dict:
+    """Arm (a): TRAIN_ARCH at full width as phase 8 (a) runs it, placed on a
+    mesh of one by launch.train's code: SHARDED_STEPS steps of phase 8
+    (a)'s batches, each placed by make_batch_specs, against phase 8 (a)'s
+    first losses and gradient norms (``ref``: that arm's numbers, this
+    call)."""
+    import math
+    from collections import Counter
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed import hints
+    from repro_torch.distributed.sharding import batch_axes, place_batch
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import axis_sizes, make_local_mesh
+    from repro_torch.models.registry import build
+    from repro_torch.train.layout import leaves
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = ARCHS[TRAIN_ARCH]
+    model = build(cfg)
+    mesh = make_local_mesh(1)
+    hints.set_axes(batch_axes(mesh), mesh=mesh)
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = launch.placed_state(model, mesh, TRAIN_SEED,
+                                    torch.device(DEVICE))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        placed = Counter(str(tuple(t.placements)) for _, t in leaves(state))
+        step = make_train_step(model, base_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                               total_steps=TRAIN_TOTAL)
+        metrics, evs = [], []
+        for i in range(SHARDED_STEPS):
+            batch = place_batch(train_data(cfg, TRAIN_BATCH, TRAIN_SEQ, i),
+                                mesh)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = step(state, batch)
+            stop.record()
+            metrics.append(m)
+            if i:  # the first step warms cuBLAS, the allocator and DTensor
+                evs.append((start, stop))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        del state
+    finally:
+        hints.clear()
+    ms = [a.elapsed_time(b) for a, b in evs]
+    at = train_ms(ms)
+    losses = [float(x["loss"]) for x in metrics]
+    gnorms = [float(x["grad_norm"]) for x in metrics]
+    want_l = ref["losses"][:SHARDED_STEPS]
+    want_g = ref["grad_norms"][:SHARDED_STEPS]
+    gap = max(abs(a - b) / abs(b) for a, b in
+              zip(losses + gnorms, want_l + want_g))
+    bit_equal = losses == want_l and gnorms == want_g
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    say(f"[9 lm sharded] (a) {TRAIN_ARCH} on mesh {axis_sizes(mesh)}: state "
+        f"placed in {init_s:.2f} s, leaves by placement {dict(placed)}; step "
+        f"{at['p50']:.2f} ms (p50), {at['max']:.2f} ms (max) over "
+        f"{len(ms)} steps ({ms}) against phase 8 (a)'s "
+        f"{ref['step_ms_p50']:.2f} ms; {tokens * 1e3 / at['p50']:.1f} "
+        f"tokens/s; peak {peak / 1e9:.3f} GB (phase 8 (a): "
+        f"{ref['peak_bytes'] / 1e9:.3f}); losses {losses} against "
+        f"{want_l}; grad norms {gnorms} against {want_g}; largest relative "
+        f"gap {gap:.3e}; bit-equal {bit_equal}")
+    check(all(math.isfinite(x) for x in losses + gnorms),
+          f"{TRAIN_ARCH} placed: a non-finite loss or gradient norm")
+    check(gap <= TOL_TRAIN_CROSS,
+          f"{TRAIN_ARCH} placed parts from phase 8 (a): {gap:.3e}")
+    check(set(placed) == {"(Replicate(), Replicate())",
+                          "(Shard(dim=0), Shard(dim=1))",
+                          "(Shard(dim=1), Shard(dim=0))"},
+          f"unexpected placements {dict(placed)}")
+    return {"arch": TRAIN_ARCH, "mesh": axis_sizes(mesh), "init_s": init_s,
+            "leaves_by_placement": dict(placed), "step_ms": ms,
+            "step_ms_p50": at["p50"], "step_ms_max": at["max"],
+            "phase8_step_ms_p50": ref["step_ms_p50"],
+            "tokens_per_s": tokens * 1e3 / at["p50"], "peak_bytes": peak,
+            "phase8_peak_bytes": ref["peak_bytes"], "losses": losses,
+            "grad_norms": gnorms, "phase8_losses": want_l,
+            "phase8_grad_norms": want_g, "max_rel_gap": gap,
+            "bit_equal": bit_equal}
+
+
+def sharded_ep(torch) -> dict:
+    """Arm (b): EP_ARCH at reduced() in float32 with nothing dropped,
+    ``moe_impl="ep"`` on the mesh of one against ``"dense"`` on the card
+    (unplaced): forward logits, then one step of each from one seeded
+    state."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed import hints
+    from repro_torch.distributed.sharding import (
+        batch_axes,
+        make_param_specs,
+        place,
+        place_batch,
+    )
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.common import plain
+    from repro_torch.models.registry import build
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    base = dataclasses.replace(ARCHS[EP_ARCH].reduced(), capacity_factor=EP_CF)
+    dense = build(base)
+    ep = build(dataclasses.replace(base, moe_impl="ep"))
+    dev = torch.device(DEVICE)
+    batch = train_data(base, EP_BATCH, EP_SEQ, 0)
+    tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+    params = dense.init(torch.Generator(device=dev).manual_seed(TRAIN_SEED), dev)
+    with torch.no_grad():
+        want = dense.forward(params, tokens=tokens)[0]
+    mesh = make_local_mesh(1)
+    hints.set_axes(batch_axes(mesh), mesh=mesh)
+    try:
+        placed = place(plain(params), mesh, make_param_specs(ep, mesh))
+        with torch.no_grad():
+            got = ep.forward(placed, tokens=place_batch(
+                {"t": tokens}, mesh)["t"])[0].full_tensor()
+        kw = dict(base_lr=1e-3, warmup=1, total_steps=10)
+        state = launch.placed_state(ep, mesh, TRAIN_SEED, dev)
+        state, m = make_train_step(ep, **kw)(state, place_batch(batch, mesh))
+    finally:
+        hints.clear()
+    state0 = init_state(dense, torch.Generator(device=dev).manual_seed(
+        TRAIN_SEED), device=dev)
+    state0, m0 = make_train_step(dense, **kw)(state0, batch)
+    rel = float((got - want).abs().max() / want.abs().max())
+    step_gap = max(abs(float(m[k]) - float(m0[k])) / abs(float(m0[k]))
+                   for k in ("loss", "grad_norm"))
+    say(f"[9 lm sharded] (b) {EP_ARCH} reduced() float32, moe_impl=ep on the "
+        f"mesh of one against dense: logits relative gap {rel:.3e}, "
+        f"bit-equal {bool(torch.equal(got, want))}; one step: loss "
+        f"{float(m['loss'])!r} against {float(m0['loss'])!r}, grad norm "
+        f"{float(m['grad_norm'])!r} against {float(m0['grad_norm'])!r}")
+    check(rel <= TOL_LM_CROSS, f"moe_ep parts from the dense moe: {rel:.3e}")
+    check(step_gap <= TOL_TRAIN_CROSS,
+          f"moe_ep's step parts from the dense one: {step_gap:.3e}")
+    return {"arch": EP_ARCH, "logits_rel": rel,
+            "logits_bit_equal": bool(torch.equal(got, want)),
+            "loss": float(m["loss"]), "dense_loss": float(m0["loss"]),
+            "grad_norm": float(m["grad_norm"]),
+            "dense_grad_norm": float(m0["grad_norm"]), "step_gap": step_gap}
+
+
+def sharded_supervised(torch, workdir: str) -> dict:
+    """Arm (c): ``launch.train`` on the card for TRAIN_ARCH's reduced(),
+    under deterministic algorithms: its main on the group of one (which
+    trains the unplaced state), then its loop (``launch.run``) on the
+    mesh of one uninterrupted and with a failure injected at
+    SHARDED_SUP_FAIL through the supervisor's ``fail_injector``: one
+    restart, the last loss bit for bit."""
+    import io
+    import os
+
+    from repro_torch.launch import train as launch
+    from repro_torch.models.registry import build
+
+    argv = ["--arch", TRAIN_ARCH, "--reduced", "--steps",
+            str(SHARDED_SUP_STEPS), "--batch", "4", "--seq", "16",
+            "--ckpt-every", str(SHARDED_SUP_EVERY), "--device", DEVICE]
+    failed = []
+
+    def fail_once(step: int) -> None:
+        if step == SHARDED_SUP_FAIL and not failed:
+            failed.append(step)
+            raise RuntimeError(f"injected failure before step {step}")
+
+    def supervised(label, injector):
+        args = launch.parse_args(argv + ["--ckpt", os.path.join(workdir,
+                                                                label)])
+        cfg = launch.train_config(args)
+        dev = torch.device(DEVICE)
+        return launch.run(args, cfg, build(cfg), launch.launch_mesh(args, dev),
+                          dev, injector)
+
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for label, fn in (
+                ("main", lambda: launch.main(
+                    argv + ["--ckpt", os.path.join(workdir, "main")])),
+                ("faulty", lambda: supervised("faulty", fail_once)),
+                ("clean", lambda: supervised("clean", None))):
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                log = fn()
+            runs[label] = {"log": log, "text": out.getvalue(),
+                           "wall_s": time.perf_counter() - t0}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    main, faulty, clean = runs["main"], runs["faulty"], runs["clean"]
+    mesh_line = main["text"].splitlines()[0]
+    restarted = "restarts=1" in faulty["text"]
+    last, last0 = faulty["log"][-1]["loss"], clean["log"][-1]["loss"]
+    last_main = main["log"][-1]["loss"]
+    gap = abs(last_main - last0) / abs(last0)
+    say(f"[9 lm sharded] (c) launch.train --reduced on the card: main "
+        f"printed {mesh_line!r}, {SHARDED_SUP_STEPS} steps unplaced in "
+        f"{main['wall_s']:.2f} s, last loss {last_main!r}; its loop on the "
+        f"mesh of one, a failure at step {SHARDED_SUP_FAIL}: restarted "
+        f"{restarted}, {len(faulty['log'])} steps logged in "
+        f"{faulty['wall_s']:.2f} s ({clean['wall_s']:.2f} s uninterrupted); "
+        f"last loss {last!r} against the uninterrupted {last0!r}; main "
+        f"against the placed loop {gap:.3e} relative, bit-equal "
+        f"{last_main == last0}")
+    check(mesh_line.endswith("mesh={'data': 1, 'model': 1}"),
+          f"launch.train printed {mesh_line!r}")
+    check(restarted and "restarts=0" in clean["text"],
+          "the supervised run under the mesh did not restart once")
+    check(last == last0, "the restarted run parts from the uninterrupted one")
+    check(gap <= TOL_TRAIN_CROSS,
+          f"launch.train's unplaced run parts from the placed one: {gap:.3e}")
+    return {"mesh_line": mesh_line, "restarts": 1 if restarted else 0,
+            "logged_steps": len(faulty["log"]), "last_loss": last,
+            "clean_last_loss": last0, "main_last_loss": last_main,
+            "main_rel_gap": gap, "main_bit_equal": last_main == last0,
+            "wall_s": faulty["wall_s"], "clean_wall_s": clean["wall_s"],
+            "main_wall_s": main["wall_s"],
+            "losses": [x["loss"] for x in faulty["log"]]}
+
+
+def phase_sharded_train(torch, train: dict) -> dict:
+    """Phase 9: sharded LM training on the card's group of one (see the
+    module docstring). Each arm's launch counts are set to 0 just before
+    it and read just after; the path launches none of the five kernels."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import train as launch
+
+    launches = {}
+
+    def counted(arm, fn, *args):
+        zero_launches()
+        out = fn(*args)
+        launches[arm] = launches_now()
+        check(sum(launches[arm].values()) == 0,
+              f"sharded arm ({arm}) launched a search kernel: {launches[arm]}")
+        return out
+
+    torch.cuda.empty_cache()
+    started = launch.join_group(torch.device(DEVICE))
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        a = counted("a", sharded_full, torch, train["arms"]["a"])
+        torch.cuda.empty_cache()
+        b = counted("b", sharded_ep, torch)
+        c = counted("c", sharded_supervised, torch, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+        if started:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return {"arms": {"a": a, "b": b, "c": c, "launches": launches},
+            "launches": launches}
+
+
 def main() -> int:
     import os
 
@@ -3687,6 +3989,7 @@ def main() -> int:
     kernels = timed("phase 6", phase_times, torch, kb, ka, kd, kce, loop)
     lm = timed("phase 7 lm serve", phase_lm, torch)
     train = timed("phase 8 lm train", phase_train, torch)
+    sharded = timed("phase 9 lm sharded", phase_sharded_train, torch, train)
     # Launches on the path that runs each kernel: host rounds (A, B), the
     # persistent sweep (C), the slab arms (D, E).
     launches = dict(host["launches"])
@@ -3713,12 +4016,15 @@ def main() -> int:
                             for arm, n in lm["launches"].items()}
         k["train_launches"] = {arm: n[k["name"]]
                                for arm, n in train["launches"].items()}
+        k["sharded_train_launches"] = {
+            arm: n[k["name"]] for arm, n in sharded["launches"].items()}
     say(f"total {time.perf_counter() - t_all:.2f} s")
     say(json.dumps({"stream": stream["arms"]}))
     say(json.dumps({"resilient": resil["arms"]}))
     say(json.dumps({"sharded": shard["arms"]}))
     say(json.dumps({"lm_serve": lm["arms"]}))
     say(json.dumps({"lm_train": train["arms"]}))
+    say(json.dumps({"lm_sharded": sharded["arms"]}))
     say(json.dumps({"kernels": kernels}))
     say(card["smi"])
     say(json.dumps({"ok": True, "device": {

@@ -28,9 +28,13 @@ the ten architecture configs (``configs.ARCHS``). It reaches no Pallas
 kernel in ``repro`` and runs on PyTorch ops. So does LM training: the
 optimizers, gradient compression and the microbatched train step
 (``train``), the token stream (``data.lm``), ``TrainingSupervisor``
-(``distributed.fault_tolerance``) and ``launch.train``, on one device.
-Sharding, the dry-run and the roofline tooling are not ported yet
-(ROADMAP.md Queue 1 items 7c-7d).
+(``distributed.fault_tolerance``) and ``launch.train``. The train state
+is placed by ``repro``'s partitioning rules over a ``torch.distributed``
+``DeviceMesh`` as DTensors (``distributed.sharding``, ``launch.mesh``),
+with real activation anchors (``distributed.hints``), the expert-parallel
+MoE (``models.mlp.moe_ep``) and ``elastic_reshard``. The dry-run and the
+roofline tooling are not ported yet (ROADMAP.md Queue 1 items 7c.3 and
+7d).
 
 Entry points take a ``device`` argument and run on CUDA unless the caller
 passes ``device="cpu"``; with no device given and no CUDA present they

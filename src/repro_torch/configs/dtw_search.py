@@ -5,9 +5,10 @@ reads. The sizes follow the paper's §5 protocol (Herrmann & Webb 2020): a
 reference of N = 1,000,000 samples, queries of l = 1024, window ratio 0.1
 (w = 102), Q = 8 standing queries and 256 candidates per query per round.
 See ``repro``'s config for what each knob does; ``backend`` has no
-counterpart (the port dispatches by device). The Pallas tiling knobs
-``rows_per_step`` and ``row_block`` change nothing here, so ``make_plan``'s
-defaults supply them; ``block_k`` sets the granularity of the persistent
+counterpart (the port dispatches by device). The tiling knobs
+``rows_per_step`` and ``row_block`` are accepted and handed to
+``make_plan``, and change nothing here (no kernel of the port reads
+them); ``block_k`` sets the granularity of the persistent
 sweep's ``blocks`` work metric. The streaming knobs are ``repro``'s, and
 ``make_stream_engine`` hands them to ``serve.stream.StreamSearchEngine``:
 ``stream_chunk``, the samples an ingest takes (the engine's fixed ingest
@@ -39,7 +40,9 @@ class SearchConfig:
     batch: int = 256                 # candidates per query per round
     variant: str = "eapruned"
     band_width: int | None = None    # None = warp-aligned 2*window+1
+    rows_per_step: int = 1           # repro's loop-unroll knob; no effect
     block_k: int = 8                 # persistent sweep: lanes per work block
+    row_block: int = 128             # repro's rows per grid step; no effect
     rounds: str = "host"             # round driver: "host" | "persistent"
     gather: str = "fused"            # candidate materialization (§2.10)
     slab_budget: int | None = None   # byte cap on host-side slabs (§2.10)
@@ -77,7 +80,9 @@ class SearchConfig:
             variant=self.variant,
             batch=self.batch,
             band_width=self.band_width,
+            rows_per_step=self.rows_per_step,
             block_k=self.block_k,
+            row_block=self.row_block,
             rounds=self.rounds,
             gather=self.gather,
             slab_budget=self.slab_budget,

@@ -24,9 +24,16 @@ The three rounds take ``with_info=True`` and then also return the per-lane
 
 Dispatch is by the device of the tensors: each ``kernels.ops`` wrapper
 launches its CUDA kernel for CUDA tensors and runs its plain version for
-CPU tensors. ``repro``'s ``backend`` knob has no counterpart. Value checks
-that would cost a host sync per round (``ub`` NaN, ``cb >= 0``) are not
-made here; the frontends check the queries and seeds once.
+CPU tensors. ``repro``'s ``backend`` knob has no counterpart.
+
+Checks follow ``repro``'s split (``core/guards.py``): the public round
+primitives make the static shape and knob checks, and then the value
+checks (a finite query, no NaN ``ub``, ``cb >= 0``), which cost one host
+read a call. ``repro`` skips the value checks on traced arrays, so its
+jitted round loops never pay them; the port's round loops
+(``search.pipeline``, ``search.streaming``) call the unchecked
+``_multi_batch``, ``_multi_batch_fused`` and ``_batch`` instead, so no
+round gains a host sync.
 """
 from __future__ import annotations
 
@@ -86,13 +93,28 @@ def ea_pruned_dtw_multi_batch_fused(
       with_info: also return the per-lane ``EAInfo`` counters.
 
     Returns ``(Q, K)`` distances; with ``with_info`` a ``(distances,
-    EAInfo)`` pair of ``(Q, K)`` tensors.
+    EAInfo)`` pair of ``(Q, K)`` tensors. Raises ``NonFiniteInputError``
+    on a non-finite query or a NaN ``ub`` (one host read; ``repro``'s
+    fused primitive skips these checks).
     """
-    del rows_per_step
     if queries.dim() != 2:
         raise guards.SearchInputError(
             "fused multi batch requires (Q, m) univariate queries"
         )
+    check_batch_values(queries, ub, multi=True)
+    return _multi_batch_fused(
+        queries, ref, starts, ub, window, mu, sigma, envelopes=envelopes,
+        band_width=band_width, block_k=block_k, row_block=row_block,
+        with_info=with_info, ref_budget=ref_budget)
+
+
+def _multi_batch_fused(queries, ref, starts, ub, window, mu, sigma,
+                       envelopes=None, band_width=None, rows_per_step=1,
+                       block_k=8, row_block=128, with_info=False,
+                       ref_budget=None):
+    """``ea_pruned_dtw_multi_batch_fused`` without its checks: the round
+    loops' entry."""
+    del rows_per_step
     length = int(queries.shape[1])
     # Clamped for the table gather only: the round flags the lane itself.
     idx = starts.long().clamp(0, mu.shape[0] - 1)
@@ -120,7 +142,7 @@ def check_batch_args(query, candidates, window, cb=None, multi=False):
     """Shape checks of the slab primitives (``repro``'s
     ``core/guards.py::check_batch_args``, static part); raises
     ``SearchInputError``. ``multi`` selects the ``(Q, m)`` x ``(Q, K, m)``
-    contract, else ``(m,)`` x ``(K, m)``."""
+    contract, else ``(m[, dims])`` x ``(K, m[, dims])``."""
     qnd, cnd = query.dim(), candidates.dim()
     if multi:
         if qnd != 2:
@@ -138,25 +160,50 @@ def check_batch_args(query, candidates, window, cb=None, multi=False):
                 f"candidates Q={candidates.shape[0]} != queries "
                 f"Q={query.shape[0]}"
             )
-    elif qnd != 1:
-        raise NotImplementedError(
-            "multivariate queries have no batch path in the port, by design: "
-            "repro's search cannot use one (ROADMAP.md Queue 1, Queue 3)"
-        )
-    elif cnd != 2:
+    elif qnd not in (1, 2):
         raise guards.SearchInputError(
-            f"candidates must be (K, m), got shape {tuple(candidates.shape)}"
+            f"query must be (m,) or (m, dims), got shape {tuple(query.shape)}"
         )
-    m = query.shape[-1]
-    if candidates.shape[-1] != m:
+    elif cnd != qnd + 1:
         raise guards.SearchInputError(
-            f"candidate length {candidates.shape[-1]} != query length {m}"
+            f"candidates must be (K,) + query shape {tuple(query.shape)}, "
+            f"got shape {tuple(candidates.shape)}"
+        )
+    m = query.shape[1 if multi else 0]
+    if candidates.shape[2 if multi else 1] != m:
+        raise guards.SearchInputError(
+            f"candidate length {candidates.shape[2 if multi else 1]} != "
+            f"query length {m}"
         )
     guards.ensure_knobs(window=window)
     if cb is not None and cb.shape[-1] != m:
         raise guards.SearchInputError(
             f"cb last-axis length {cb.shape[-1]} != query length {m}"
         )
+
+
+def check_batch_values(query, ub, cb=None, multi=False):
+    """``repro``'s value checks of the batch primitives, in its order, at
+    one host read: ``cb`` non-negative (``SearchInputError``), the query
+    finite and ``ub`` free of NaN (``NonFiniteInputError``)."""
+    dev = query.device
+    ub = torch.as_tensor(ub, device=dev)
+    cb_neg = ((cb < 0).any() if cb is not None
+              else torch.zeros((), dtype=torch.bool, device=dev))
+    cb_neg, bad, ub_nan = torch.stack([
+        cb_neg.long(), (~torch.isfinite(query)).sum(),
+        torch.isnan(ub).any().long()]).tolist()
+    if cb_neg:
+        raise guards.SearchInputError(
+            "cb must be non-negative (cumulative LB_Keogh suffix sums)")
+    if bad:
+        raise guards.NonFiniteInputError(
+            f"{'queries' if multi else 'query'} contains {bad} "
+            "non-finite value(s); queries must be finite (reference-side "
+            "non-finites are quarantined instead)")
+    if ub_nan:
+        raise guards.NonFiniteInputError(
+            "ub contains NaN (use +inf / BIG for cold)")
 
 
 def ea_pruned_dtw_batch(
@@ -175,9 +222,11 @@ def ea_pruned_dtw_batch(
     distances, ``+inf`` where a lane abandoned.
 
     Args:
-      query: ``(m,)`` z-normalized query (a multivariate one raises
-        ``NotImplementedError``: not ported by design, ROADMAP.md Queue 1).
-      candidates: ``(K, m)`` normalized windows.
+      query: ``(m,)`` or ``(m, dims)`` z-normalized query. A multivariate
+        query runs the full-row ``core.ea_pruned_dtw`` on each candidate
+        with no kernel, as ``repro`` runs its jax backend for one (its
+        kernel is univariate).
+      candidates: ``(K, m[, dims])`` normalized windows.
       ub: scalar upper bound shared by every lane, or ``(K,)`` per lane.
       window: Sakoe-Chiba window.
       band_width: columns per row (``None`` = ``default_band_width``).
@@ -186,15 +235,50 @@ def ea_pruned_dtw_batch(
       rows_per_step, block_k, row_block: ``repro``'s tuning knobs; no
         effect on results.
       with_info: also return the per-lane ``EAInfo`` counters, as a
-        ``(distances, EAInfo)`` pair.
+        ``(distances, EAInfo)`` pair (a multivariate query's are the
+        full-row algorithm's).
+
+    Raises ``SearchInputError`` on malformed shapes, knobs or a negative
+    ``cb``, and ``NonFiniteInputError`` on a non-finite query or a NaN
+    ``ub``.
     """
-    del rows_per_step
     check_batch_args(query, candidates, window, cb=cb)
+    check_batch_values(query, ub, cb)
+    return _batch(query, candidates, ub, window, band_width, cb,
+                  block_k=block_k, row_block=row_block, with_info=with_info)
+
+
+def _batch(query, candidates, ub, window, band_width=None, cb=None,
+           rows_per_step=1, block_k=8, row_block=128, with_info=False):
+    """``ea_pruned_dtw_batch`` without its checks: the round loops' entry."""
+    del rows_per_step
+    if query.dim() == 2:
+        return _multivariate(query, candidates, ub, window, cb, with_info)
     return _with_info(ops.dtw_ea(
         _f32(query), _f32(candidates), ub, window,
         cb=None if cb is None else _f32(cb), band_width=band_width,
         block_k=block_k, row_block=row_block, with_info=with_info,
     ), with_info)
+
+
+def _multivariate(query, candidates, ub, window, cb, with_info):
+    """An ``(m, dims)`` query against ``(K, m, dims)`` candidates: the
+    full-row ``core.ea_pruned_dtw`` lane by lane, each under its own
+    ``ub``."""
+    from repro_torch.core.ea_pruned_dtw import ea_pruned_dtw
+
+    k = candidates.shape[0]
+    ub = torch.as_tensor(ub, dtype=torch.float32,
+                         device=candidates.device).expand(k)
+    lanes = [ea_pruned_dtw(_f32(query), _f32(candidates[i]), ub[i],
+                           window=window, with_info=with_info,
+                           cb=None if cb is None else _f32(cb[i]))
+             for i in range(k)]
+    if not with_info:
+        return torch.stack(lanes).to(torch.float32)
+    return (torch.stack([d for d, _ in lanes]).to(torch.float32),
+            EAInfo(rows=torch.stack([i.rows for _, i in lanes]),
+                   cells=torch.stack([i.cells for _, i in lanes])))
 
 
 def ea_search_round(
@@ -252,10 +336,21 @@ def ea_pruned_dtw_multi_batch(
 
     ``ub`` is a scalar, ``(Q, 1)`` or ``(Q, K)``; negative entries are
     dead-lane sentinels (how finished queries ride along). ``cb`` is
-    ``(Q, K, m)``; the other arguments as ``ea_pruned_dtw_batch``.
+    ``(Q, K, m)``; the other arguments and the checks as
+    ``ea_pruned_dtw_batch``.
     """
-    del rows_per_step
     check_batch_args(queries, candidates, window, cb=cb, multi=True)
+    check_batch_values(queries, ub, cb, multi=True)
+    return _multi_batch(queries, candidates, ub, window, band_width, cb,
+                        block_k=block_k, row_block=row_block,
+                        with_info=with_info)
+
+
+def _multi_batch(queries, candidates, ub, window, band_width=None, cb=None,
+                 rows_per_step=1, block_k=8, row_block=128, with_info=False):
+    """``ea_pruned_dtw_multi_batch`` without its checks: the round loops'
+    entry."""
+    del rows_per_step
     return _with_info(ops.dtw_ea_multi(
         _f32(queries), _f32(candidates), ub, window,
         cb=None if cb is None else _f32(cb), band_width=band_width,

@@ -1,6 +1,6 @@
 """Distributed execution (port of ``repro.distributed``): the
-fault-tolerance primitives, ``TrainingSupervisor`` among them, and the
-activation-sharding anchors (``hints``, identities on one device).
-Sharding and ``elastic_reshard`` are not ported yet (ROADMAP.md Queue 1
-item 7c).
+fault-tolerance primitives (``TrainingSupervisor`` and ``elastic_reshard``
+among them), the partitioning rules (``sharding``: specs as data, DTensor
+placements over a ``DeviceMesh``) and the activation-sharding anchors
+(``hints``).
 """

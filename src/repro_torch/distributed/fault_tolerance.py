@@ -18,15 +18,15 @@
     default seed, so both packages draw the same sleeps.
   * ``hedge_race`` — the deterministic host emulation of racing backup
     attempts against a straggling primary.
-  * ``TrainingSupervisor`` — checkpoint/restart around the LM train step.
+  * ``TrainingSupervisor`` — checkpoint/restart around the LM train step,
+    on one device or on placed state (every rank runs it in step).
+  * ``elastic_reshard`` — the train state moved onto another mesh.
 
 Pure Python and numpy but for the supervisor's restore: the callers
 (``search.resilient``, ``search.pipeline.HedgedExecutor``,
 ``serve.supervisor``) make an attempt's time include its device work
 before they read the clock, and ``TrainingSupervisor`` reads a step's
-loss on the host before it does. ``repro``'s ``elastic_reshard`` (a
-``device_put`` across meshes) comes with the sharding slice (ROADMAP.md
-Queue 1 item 7c).
+loss on the host before it does.
 """
 from __future__ import annotations
 
@@ -39,6 +39,7 @@ import numpy as np
 
 from repro_torch.core import guards
 from repro_torch.train import checkpoint as ckpt_lib
+from repro_torch.train.layout import mesh_of
 
 TRANSIENT = (RuntimeError, ValueError, OSError)
 GUARD_ERRORS = (guards.SearchInputError, guards.StreamStateError)
@@ -307,7 +308,13 @@ class TrainingSupervisor:
     ``jax.block_until_ready``), so the straggler monitor times the device
     work. A restore copies the checkpoint into the state's own tensors: each
     leaf keeps its device, dtype (bfloat16 bit for bit) and place in the
-    structure.
+    structure, and a placed leaf its placement.
+
+    On placed state every rank of the mesh runs the supervisor in step,
+    with the same data and failures: a checkpoint is gathered by all and
+    written by the mesh's first rank (``train.checkpoint``), and before a
+    restore (and at the end of ``run``) the ranks wait for that writer's
+    files, so every rank resumes from the same step.
     """
 
     def __init__(
@@ -347,6 +354,7 @@ class TrainingSupervisor:
             # but-uncommitted step and replay would rewind past real
             # progress (same rule as SearchSupervisor._barrier).
             self._async.wait()
+        _mesh_barrier(state)
         step = ckpt_lib.latest_step(self.ckpt_dir)
         if step is None:
             return state, 0
@@ -388,4 +396,40 @@ class TrainingSupervisor:
         if self._async is not None:
             self._async.close()
             self._async = ckpt_lib.AsyncCheckpointer(self.ckpt_dir, keep=self.keep)
+        _mesh_barrier(state)
         return state, metrics_log
+
+
+def _mesh_barrier(state) -> None:
+    """On placed state, wait until every rank of its mesh gets here (one
+    tiny all-reduce over each mesh dimension in turn); else nothing."""
+    mesh = mesh_of(state)
+    if mesh is None:
+        return
+    import torch
+    from torch.distributed.tensor import DTensor, Partial
+
+    from repro_torch.launch.mesh import mesh_device
+
+    one = torch.ones((), device=mesh_device(mesh))
+    DTensor.from_local(one, mesh, (Partial(),) * mesh.ndim,
+                       run_check=False).full_tensor()
+
+
+def elastic_reshard(state, old_mesh, new_mesh, make_specs: Callable):
+    """Re-place train state onto a new mesh (shrunk/grown "data" axis).
+
+    ``make_specs(mesh)`` returns the spec tree for the state
+    (``sharding.make_state_specs``). DTensor cannot redistribute across
+    meshes, so each placed leaf is gathered whole over ``old_mesh`` (a
+    collective: every rank of ``old_mesh`` calls this, the new mesh built
+    on all of them first) and distributed anew by its new spec; values are
+    bit-identical. Afterwards each rank of ``new_mesh`` holds its shard of
+    every leaf, and a rank outside it holds DTensors with no local data
+    (it has left the job). A plain leaf is placed as it is.
+    """
+    from repro_torch.distributed.sharding import place
+
+    if old_mesh is not None and mesh_of(state) not in (None, old_mesh):
+        raise ValueError("state is not placed on old_mesh")
+    return place(state, new_mesh, make_specs(new_mesh))

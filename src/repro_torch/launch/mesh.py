@@ -1,0 +1,112 @@
+"""Mesh construction (port of ``repro/launch/mesh.py``).
+
+Functions, never module-level meshes, so importing this module touches no
+process group. A mesh is a ``torch.distributed`` ``DeviceMesh`` over the
+default process group, which the caller starts (``torchrun`` or
+``init_process_group``); its dimension names are ``repro``'s axis names.
+
+``repro`` targets TPU v5e pods (16 x 16 = 256 chips a pod, a leading
+``"pod"`` axis for two pods); its constants stay below under their own
+names. The port runs on NVIDIA H100 cards, whose constants sit beside
+them. The roofline reads both.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+# repro's target, one TPU v5e chip.
+PEAK_FLOPS = 197e12        # bf16 per chip (TPU v5e class)
+HBM_BW = 819e9             # bytes/s per chip
+ICI_BW = 50e9              # bytes/s per link (ring model)
+
+# The port's card: NVIDIA H100 SXM5 80 GB at its full 700 W power limit,
+# from NVIDIA's H100 datasheet (dense rates, no sparsity). A card set
+# below 700 W runs slower under load: report its name and power limit
+# (nvidia-smi --query-gpu=name,power.limit) beside every roofline share.
+H100_NAME = "NVIDIA H100 80GB HBM3"
+H100_POWER_LIMIT_W = 700.0
+H100_PEAK_BF16_FLOPS = 989e12   # FLOP/s, bf16 / fp16 tensor cores
+H100_PEAK_FP32_FLOPS = 67e12    # FLOP/s, float32 outside the tensor cores
+H100_HBM_BW = 3.35e12           # bytes/s, HBM3
+# NVLink 4: 18 links a card, 900 GB/s both directions together, so
+# 25 GB/s a link a direction: the per-link rate of ICI_BW's ring model.
+H100_NVLINK_LINKS = 18
+H100_NVLINK_BW = 25e9           # bytes/s per link, one direction
+
+PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def _device_type(device_type: str | None) -> str:
+    """The mesh's device type: ``device_type``, the caller's device, or
+    with None the default group's (NCCL: the card, else the CPU). An NCCL
+    group carries only CUDA tensors, so any other type is refused."""
+    backend = dist.get_backend()
+    if device_type is None:
+        return "cuda" if backend == "nccl" else "cpu"
+    if backend == "nccl" and device_type != "cuda":
+        raise ValueError(
+            f"the default group runs NCCL, which carries no {device_type} "
+            "tensors: start a gloo group for them")
+    return device_type
+
+
+def _world() -> int:
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "a mesh needs the default process group: start one with "
+            "torchrun or torch.distributed.init_process_group")
+    return dist.get_world_size()
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str | None = None):
+    """``repro``'s production mesh over the default group: ``(16, 16)``
+    ``("data", "model")``, or ``(2, 16, 16)`` ``("pod", "data", "model")``
+    with ``multi_pod``, its tensors on ``device_type`` (as
+    ``make_local_mesh``). Raises ``ValueError`` unless the world holds
+    exactly 256 (512) ranks."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape, axes = PRODUCTION_SHAPES[bool(multi_pod)]
+    need = 1
+    for n in shape:
+        need *= n
+    world = _world()
+    kind = _device_type(device_type)
+    if world != need:
+        raise ValueError(
+            f"the production mesh {dict(zip(axes, shape))} needs a world "
+            f"size of {need} ranks, got {world}")
+    return init_device_mesh(kind, shape, mesh_dim_names=axes)
+
+
+def make_local_mesh(model_parallel: int = 1, device_type: str | None = None):
+    """A ``(world // model_parallel, model_parallel)`` ``("data", "model")``
+    mesh over the default group (tests, CPU runs, one card). Its tensors
+    live on ``device_type`` (``"cuda"`` or ``"cpu"``: the caller's device;
+    gloo ranks may hold either), by default on the card under NCCL and on
+    the CPU otherwise."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    world = _world()
+    kind = _device_type(device_type)
+    if model_parallel < 1 or world % model_parallel:
+        raise ValueError(
+            f"model_parallel={model_parallel} does not divide the world "
+            f"size {world}")
+    return init_device_mesh(kind, (world // model_parallel, model_parallel),
+                            mesh_dim_names=("data", "model"))
+
+
+def axis_sizes(mesh) -> dict:
+    """``{axis name: size}``, ``repro``'s ``mesh.shape``."""
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def mesh_device(mesh) -> torch.device:
+    """This rank's device for tensors placed on ``mesh``."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)

@@ -149,6 +149,39 @@ def causal_mask(s: int, window: int = 0, device=None) -> torch.Tensor:
 CHUNKED_THRESHOLD = 8192  # sequences >= this use online-softmax attention
 
 
+def _per_shard(core, q, k, v, *rest):
+    """``core(q, k, v, *rest)``; on DTensors, run on each rank's shards
+    (``shard_map`` of the attention core, as GSPMD partitions it): batch
+    rows over the batch axes and heads over ``"model"`` where they divide
+    (else that dimension is computed whole on each rank). ``rest`` are
+    ``(B or 1, ...)`` tensors or None. DTensor's einsum cannot keep a
+    sharded head dimension through the score product's reshapes, so the
+    core stays out of its sharding rules."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(q, DTensor):
+        return core(q, k, v, *rest)
+    from repro_torch.distributed.hints import from_local, to_local
+    from repro_torch.distributed.sharding import row_axes
+
+    mesh = q.device_mesh
+    b, s, h, hd = q.shape
+    bax = row_axes(mesh, b)
+    n_tp = dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 1)
+    tp = "model" if h % n_tp == 0 and k.shape[2] % n_tp == 0 else None
+    heads = (bax, None, tp, None)
+
+    def rows(a):
+        if a is None:
+            return None
+        lead = bax if a.shape[0] == b else None
+        return to_local(a, mesh, (lead,) + (None,) * (a.dim() - 1))
+
+    out = core(to_local(q, mesh, heads), to_local(k, mesh, heads),
+               to_local(v, mesh, heads), *(rows(a) for a in rest))
+    return from_local(out, mesh, (bax, None, tp), (b, s, h * hd))
+
+
 def attention(p, x, positions, cfg, mask=None, kv_x=None, kv_positions=None,
               use_rope: bool = True, causal: bool = True):
     """Full-sequence attention (training / prefill). Cross-attn if kv_x.
@@ -161,22 +194,28 @@ def attention(p, x, positions, cfg, mask=None, kv_x=None, kv_positions=None,
     src = x if kv_x is None else kv_x
     q = _project_q(p, x, cfg)
     k, v = _project_kv(p, src, cfg)
-    if use_rope:
-        q = rope(q, positions, cfg.rope_theta)
-        kpos = positions if kv_positions is None else kv_positions
-        k = rope(k, kpos, cfg.rope_theta)
+    kpos = positions if kv_positions is None else kv_positions
     s, t = x.shape[1], src.shape[1]
     window = cfg.sliding_window if kv_x is None else 0
-    if mask is None and max(s, t) >= CHUNKED_THRESHOLD:
-        out = _attend_chunked(q, k, v, cfg, causal=causal and kv_x is None,
-                              window=window)
-    else:
-        if mask is None:
-            if causal and kv_x is None:
-                mask = causal_mask(s, window, device=x.device)
-            else:
-                mask = torch.ones((1, s, t), dtype=torch.bool, device=x.device)
-        out = _attend(q, k, v, mask, cfg)
+    chunked = mask is None and max(s, t) >= CHUNKED_THRESHOLD
+    if mask is None and not chunked:
+        if causal and kv_x is None:
+            mask = causal_mask(s, window, device=x.device)
+        else:
+            mask = torch.ones((1, s, t), dtype=torch.bool, device=x.device)
+
+    def core(q, k, v, positions, kpos, mask):
+        if use_rope:
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, kpos, cfg.rope_theta)
+        if chunked:
+            return _attend_chunked(q, k, v, cfg,
+                                   causal=causal and kv_x is None,
+                                   window=window)
+        return _attend(q, k, v, mask, cfg)
+
+    out = _per_shard(core, q, k, v, positions if use_rope else None,
+                     kpos if use_rope else None, mask)
     return out @ p["wo"]
 
 

@@ -91,10 +91,30 @@ def _node(value) -> nn.Module:
     raise TypeError(f"no parameter-tree node for {type(value).__name__}")
 
 
+class ShapeOnly:
+    """Stands in for a ``torch.Generator`` on the meta device: the
+    initializers given it draw nothing and return meta tensors of the
+    weights' shapes and dtypes (``repro``'s ``jax.eval_shape`` of
+    ``init``). ``build(cfg).init(None, "meta")`` uses it, so the sharding
+    rules see a 1e12-parameter config's shapes with nothing allocated."""
+
+    device = torch.device("meta")
+
+
+def init_generator(gen, device):
+    """What an ``init`` draws from: ``gen``, or ``ShapeOnly()`` when
+    ``device`` is the meta device."""
+    if device is not None and torch.device(device).type == "meta":
+        return ShapeOnly()
+    return gen
+
+
 def dense_init(gen: torch.Generator, shape, dtype) -> torch.Tensor:
     """Truncated-normal fan-in init: a standard normal truncated at +-2,
     then scaled by ``fan_in ** -0.5`` (``trunc_normal_`` takes absolute
     bounds, so they are +-2 std)."""
+    if isinstance(gen, ShapeOnly):
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     fan_in = shape[0] if len(shape) >= 2 else max(shape[0], 1)
     std = fan_in ** -0.5
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
@@ -103,9 +123,41 @@ def dense_init(gen: torch.Generator, shape, dtype) -> torch.Tensor:
 
 
 def embed_init(gen: torch.Generator, shape, dtype) -> torch.Tensor:
+    if isinstance(gen, ShapeOnly):
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     t.normal_(0.0, 0.02, generator=gen)
     return t.to(dtype)
+
+
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``embed[tokens]`` (``repro``'s ``jnp.take``). On DTensors it runs
+    per shard, as GSPMD partitions a gather from a vocab-sharded table:
+    each model rank looks up the tokens of its vocabulary slice (zeros
+    elsewhere) for its batch rows, and one all-reduce SUM over ``"model"``
+    combines them (DTensor's own rule for the gather's backward fails on
+    some torch versions). The rows are the same bits as one device's."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(embed, DTensor):
+        return embed[tokens]
+    from repro_torch.distributed.hints import from_local, to_local
+    from repro_torch.distributed.sharding import row_axes
+
+    mesh = embed.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    vocab, d = embed.shape
+    bax = row_axes(mesh, tokens.shape[0])
+    n_tp = dict(zip(names, mesh.shape)).get("model", 1)
+    tp = "model" if vocab % n_tp == 0 else None
+    table = to_local(embed, mesh, (tp, None), sums=names)
+    tok = to_local(tokens, mesh, (bax,) + (None,) * (tokens.dim() - 1))
+    lo = mesh.get_local_rank("model") * table.shape[0] if tp else 0
+    own = (tok >= lo) & (tok < lo + table.shape[0])
+    rows = table[torch.where(own, tok - lo, 0)] * own[..., None].to(table.dtype)
+    return from_local(rows, mesh, (bax,) + (None,) * tokens.dim(),
+                      tuple(tokens.shape) + (d,),
+                      sums=("model",) if tp else ())
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -135,7 +187,11 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        mask: torch.Tensor | None = None) -> torch.Tensor:
     """Mean token cross entropy; logits (..., V) in any dtype, fp32 math."""
-    logits = logits.float()
+    from repro_torch.distributed.hints import replicate_dims
+
+    # DTensor's gather along a vocab-sharded dim leaves a masked partial
+    # that its later ops mishandle: the vocab is gathered first
+    logits = replicate_dims(logits.float(), -1)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
     nll = lse - ll

@@ -14,8 +14,8 @@ under ``no_grad`` and none of them changes it. ``scan_layers`` and
 ``tp_attn_dim`` shape how ``repro`` traces and shards a step; the port
 accepts them for parity and does not read them (as
 ``configs/dtw_search.py`` does with ``rows_per_step``). ``moe_impl="ep"``
-waits for the sharding slice: it falls back to the sort-based
-``mlp.moe`` while no mesh is set, as in ``repro``.
+runs ``mlp.moe_ep`` while ``hints.mesh_info()`` is set and the
+sort-based ``mlp.moe`` otherwise, as in ``repro``.
 """
 from __future__ import annotations
 

@@ -22,6 +22,7 @@ from repro_torch.models.common import (
     cross_entropy_loss,
     dense_init,
     embed_init,
+    embed_lookup,
     linear_scan,
     pdtype,
     remat,
@@ -144,11 +145,11 @@ def _split_proj(p, u, cfg):
     return z, xc, dt
 
 
-def layer_forward(p, x, cfg, state=None, conv_tail=None):
-    """x: (B, S, D) -> (y, (new_state, new_tail))."""
-    bs, s, _ = x.shape
+def _mixer(p, u, cfg, state=None, conv_tail=None):
+    """The layer between its two projections: the in-projection ``u`` ->
+    (the gated, normed SSD output (B, S, d_inner), new state, new tail)."""
+    bs, s, _ = u.shape
     d_inner, h, n = _dims(cfg)
-    u = rms_norm(x, p["ln"], cfg.norm_eps) @ p["w_in"]
     z, xc, dtr = _split_proj(p, u, cfg)
     xc, new_tail = _conv1d(p["conv_w"], xc, conv_tail)
     xc = F.silu(xc)
@@ -161,8 +162,45 @@ def layer_forward(p, x, cfg, state=None, conv_tail=None):
         h0=state,
     )
     y = y + p["d_skip"][None, None, :, None] * xs.float()
-    y = y.reshape(bs, s, d_inner).to(x.dtype)
+    y = y.reshape(bs, s, d_inner).to(u.dtype)
     y = rms_norm(y, p["out_ln"], cfg.norm_eps) * F.silu(z)
+    return y, last, new_tail
+
+
+_MIXER_PARAMS = ("conv_w", "dt_bias", "a_log", "d_skip", "out_ln")
+
+
+def _mixer_per_shard(p, u, cfg, state, conv_tail):
+    """``_mixer`` on each rank's batch rows when ``u`` is a DTensor
+    (``shard_map`` over the batch axes; the mixer's inputs whole over
+    ``"model"``): its split of the in-projection, the scan's chunk
+    reshapes and the segment sums have no DTensor sharding rule that
+    keeps the batch sharded through them."""
+    from repro_torch.distributed.hints import from_local, to_local
+    from repro_torch.distributed.sharding import row_axes
+
+    mesh = u.device_mesh
+    bax = row_axes(mesh, u.shape[0])
+    parts = bax or ()  # each batch shard's gradient is a part
+
+    def rows(t):
+        return None if t is None else to_local(
+            t, mesh, (bax,) + (None,) * (t.dim() - 1))
+
+    local = {k: to_local(p[k], mesh, (None,) * p[k].dim(), sums=parts)
+             for k in _MIXER_PARAMS}
+    y, last, tail = _mixer(local, rows(u), cfg, rows(state), rows(conv_tail))
+    bs, s, _ = u.shape
+    whole = lambda t: from_local(t, mesh, (bax,) + (None,) * (t.dim() - 1),
+                                 (bs,) + tuple(t.shape[1:]))
+    return whole(y), whole(last), whole(tail)
+
+
+def layer_forward(p, x, cfg, state=None, conv_tail=None):
+    """x: (B, S, D) -> (y, (new_state, new_tail))."""
+    u = rms_norm(x, p["ln"], cfg.norm_eps) @ p["w_in"]
+    mixer = _mixer_per_shard if hasattr(u, "device_mesh") else _mixer
+    y, last, new_tail = mixer(p, u, cfg, state, conv_tail)
     return y @ p["w_out"], (last, new_tail)
 
 
@@ -180,7 +218,7 @@ def init_params(gen: torch.Generator, cfg, device=None) -> ParamTree:
 def forward(params, cfg, tokens, embeds=None):
     """Tokens -> logits; each layer under ``common.remat`` when
     ``cfg.remat``."""
-    x = hints.constrain_acts(params["embed"][tokens])
+    x = hints.constrain_acts(embed_lookup(params["embed"], tokens))
 
     def body(lp, x):
         y, _ = layer_forward(lp, x, cfg)
@@ -215,7 +253,7 @@ def prefill(params, cfg, cache, tokens):
     """Run the full prompt, writing the final per-layer SSM states + conv
     tails into ``cache`` in place (as ``decode_step`` does); returns the
     last-token logits and the cache."""
-    x = hints.constrain_acts(params["embed"][tokens])
+    x = hints.constrain_acts(embed_lookup(params["embed"], tokens))
     for i, lp in enumerate(params["layers"]):
         y, (st, tail) = layer_forward(lp, x, cfg)
         x = hints.constrain_acts(x + y)
@@ -229,7 +267,7 @@ def prefill(params, cfg, cache, tokens):
 def decode_step(params, cfg, cache, tokens, pos):
     """O(1)-state decode step (sequence length never appears). Writes the
     cache's states and tails in place."""
-    x = params["embed"][tokens]  # (B, 1, D)
+    x = embed_lookup(params["embed"], tokens)  # (B, 1, D)
     for i, lp in enumerate(params["layers"]):
         y, (st, tail) = layer_forward(lp, x, cfg, state=cache["state"][i],
                                       conv_tail=cache["tail"][i])

@@ -35,6 +35,7 @@ from repro_torch.models.common import (
     cross_entropy_loss,
     dense_init,
     embed_init,
+    embed_lookup,
     gelu,
     linear_scan,
     pdtype,
@@ -159,7 +160,7 @@ def _apply_block(cfg, x, positions, p, kind):
 
 
 def forward(params, cfg, tokens, embeds=None):
-    x = hints.constrain_acts(params["embed"][tokens])
+    x = hints.constrain_acts(embed_lookup(params["embed"], tokens))
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     pattern = _pattern(cfg)
@@ -243,7 +244,7 @@ def _decode_block(cfg, x, p, kind, cc, i, pos, attn_len):
 
 def decode_step(params, cfg, cache, tokens, pos):
     """One-token decode; attention caches are rolling local windows."""
-    x = params["embed"][tokens]
+    x = embed_lookup(params["embed"], tokens)
     pattern = _pattern(cfg)
     grouped = cache["grouped"]
     attn_len = next(

@@ -27,12 +27,13 @@ from repro_torch.models.common import (
     ParamTree,
     cross_entropy_loss,
     embed_init,
+    embed_lookup,
     pdtype,
     remat,
     rms_norm,
     rope,
 )
-from repro_torch.models.mlp import init_mlp, init_moe, mlp, moe
+from repro_torch.models.mlp import init_mlp, init_moe, mlp, moe, moe_ep
 
 
 def init_params(gen: torch.Generator, cfg, device=None) -> ParamTree:
@@ -67,12 +68,16 @@ def _unembed(params, cfg):
 
 
 def _ffn(cfg, lp, x):
-    """The block's second half on ``x``: (output, aux). Expert parallelism
-    (``moe_impl="ep"``) needs a mesh, and ``hints.mesh_info()`` is None in
-    the port, so ``repro``'s fallback, the sort-based ``moe``, always
-    runs."""
+    """The block's second half on ``x``: (output, aux). A MoE runs the
+    expert-parallel ``moe_ep`` when ``cfg.moe_impl == "ep"`` and the mesh
+    info is set (``hints.set_axes``), else the sort-based ``moe``, as
+    ``repro``'s ``_moe_layer`` does."""
     h_in = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if cfg.is_moe:
+        info = hints.mesh_info() if cfg.moe_impl == "ep" else None
+        if info is not None:
+            mesh, ba, tp = info
+            return moe_ep(lp["moe"], h_in, cfg, mesh, ba, tp)
         return moe(lp["moe"], h_in, cfg)
     return mlp(lp["mlp"], h_in), torch.zeros((), dtype=torch.float32,
                                               device=x.device)
@@ -82,7 +87,7 @@ def _embed_in(params, cfg, tokens, embeds):
     if cfg.input_embeds:
         x = embeds.to(pdtype(cfg))
     else:
-        x = params["embed"][tokens]
+        x = embed_lookup(params["embed"], tokens)
     return hints.constrain_acts(x)
 
 
@@ -176,7 +181,7 @@ def prefill(params, cfg, tokens=None, embeds=None, cache=None):
 def decode_step(params, cfg, cache, tokens, pos: int):
     """One decode step. tokens (B, 1); pos int. Returns (logits, cache),
     the cache written in place."""
-    x = params["embed"][tokens]
+    x = embed_lookup(params["embed"], tokens)
     cache_len = cache["k"].shape[2]
     use_roll = bool(cfg.sliding_window) and cache_len <= cfg.sliding_window
     for i, lp in enumerate(params["layers"]):

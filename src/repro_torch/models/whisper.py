@@ -27,6 +27,7 @@ from repro_torch.models.common import (
     ParamTree,
     cross_entropy_loss,
     embed_init,
+    embed_lookup,
     pdtype,
     remat,
     rms_norm,
@@ -94,7 +95,7 @@ def decode_train(params, cfg, enc_out: torch.Tensor,
                  tokens: torch.Tensor) -> torch.Tensor:
     """Teacher-forced decoder -> logits (B, S_dec, V)."""
     b, s = tokens.shape
-    x = params["embed"][tokens]
+    x = embed_lookup(params["embed"], tokens)
     x = x + sinusoidal_positions(s, cfg.d_model, x.device)[None].to(x.dtype)
     x = hints.constrain_acts(x)
     positions = _positions(b, s, x.device)
@@ -162,7 +163,7 @@ def prefill_encoder(params, cfg, frames: torch.Tensor, cache: dict) -> dict:
 def decode_step(params, cfg, cache, tokens, pos: int):
     """One decode step. The position row is clamped into the table of the
     cache's length, as ``dynamic_slice`` clamps its start."""
-    x = params["embed"][tokens]
+    x = embed_lookup(params["embed"], tokens)
     t = cache["k"].shape[2]
     row = min(max(int(pos), 0), t - 1)
     table = sinusoidal_positions(t, cfg.d_model, x.device).to(x.dtype)

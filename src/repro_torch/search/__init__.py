@@ -5,7 +5,12 @@ the streaming ingest (``streaming``), the fault-tolerant range search
 (``resilient``) over the pipeline's executor seam (``pipeline.Executor``:
 host rounds, persistent sweep, sharded, hedged), the incumbent store and
 quarantine ledger (``incumbents``) and the window statistics (``znorm``).
+
+As in ``repro``, ``cascade`` here is ``search.cascade.cascade`` (the LB
+operator chain); the pipeline's stage of the same name is
+``pipeline.cascade`` and is not re-exported.
 """
+from repro_torch.search.cascade import cascade, cascade_lower_bounds
 from repro_torch.search.distributed import (
     DistSearchResult,
     make_distributed_search,
@@ -13,7 +18,9 @@ from repro_torch.search.distributed import (
 from repro_torch.search.incumbents import (
     IncumbentState,
     QuarantineLedger,
+    fold_min,
     fold_np,
+    initial_state,
     merge_states,
 )
 from repro_torch.search.multi import (
@@ -28,8 +35,10 @@ from repro_torch.search.pipeline import (
     HostRoundsExecutor,
     PersistentExecutor,
     RangeResult,
+    SearchPlan,
     ShardedExecutor,
     get_executor,
+    make_plan,
 )
 from repro_torch.search.resilient import (
     CoverageError,
@@ -43,8 +52,20 @@ from repro_torch.search.streaming import (
     initial_incumbents,
     rescore_windows,
 )
-from repro_torch.search.subsequence import SearchResult, subsequence_search
-from repro_torch.search.znorm import append_window_stats
+from repro_torch.search.subsequence import (
+    VARIANTS,
+    SearchResult,
+    subsequence_search,
+)
+from repro_torch.search.znorm import (
+    append_window_stats,
+    clamp_sigma,
+    gather_norm_windows,
+    sanitize_series,
+    window_finite_mask,
+    window_stats,
+    znorm,
+)
 
 __all__ = [
     "CoverageError",
@@ -60,19 +81,32 @@ __all__ = [
     "QuarantineLedger",
     "RangeResult",
     "ResilientSearchResult",
+    "SearchPlan",
     "SearchResult",
     "ShardedExecutor",
     "StreamIngestExecutor",
+    "VARIANTS",
     "append_window_stats",
+    "cascade",
+    "cascade_lower_bounds",
+    "clamp_sigma",
+    "fold_min",
     "fold_np",
+    "gather_norm_windows",
     "get_executor",
     "ingest_chunk",
     "initial_incumbents",
+    "initial_state",
     "make_distributed_multi_search",
     "make_distributed_search",
+    "make_plan",
     "merge_states",
     "multi_query_search",
     "rescore_windows",
     "resilient_search",
+    "sanitize_series",
     "subsequence_search",
+    "window_finite_mask",
+    "window_stats",
+    "znorm",
 ]

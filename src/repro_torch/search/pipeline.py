@@ -53,9 +53,9 @@ import torch
 from repro_torch.core import guards
 from repro_torch.core.batch import (
     block_sweep,
-    ea_pruned_dtw_batch,
-    ea_pruned_dtw_multi_batch,
-    ea_pruned_dtw_multi_batch_fused,
+    _batch,
+    _multi_batch,
+    _multi_batch_fused,
     ea_pruned_dtw_persistent,
     ea_pruned_dtw_persistent_fused,
 )
@@ -298,7 +298,7 @@ def _dtw_round_fused(plan, prep, pq, starts, ub_lanes, *, use_cb: bool,
     """One fused-gather EAPrunedDTW round over ``(Q, K)`` lane starts:
     kernel A slices and normalizes the windows itself. Returns the
     distances, or ``(distances, EAInfo)`` with ``with_info``."""
-    return ea_pruned_dtw_multi_batch_fused(
+    return _multi_batch_fused(
         pq.qn, prep.ref, starts, ub_lanes, window=plan.window,
         mu=prep.mu, sigma=prep.sigma,
         envelopes=(pq.u, pq.low) if use_cb else None,
@@ -317,7 +317,7 @@ def _dtw_round_slab(plan, prep, pq, starts, ub_lanes, *, use_cb: bool,
     if use_cb:
         cb = cascade_keogh_cumulative(cand, pq.u[:, None, :],
                                       pq.low[:, None, :])
-    return ea_pruned_dtw_multi_batch(
+    return _multi_batch(
         pq.qn, cand, ub_lanes, window=plan.window,
         band_width=plan.band_width, cb=cb, with_info=with_info,
         **plan.knobs(),
@@ -618,7 +618,7 @@ def _baseline_search_impl(
         ``info``, its int64 ``(rows, cells)`` totals."""
         k, m = cand.shape[0], plan.length
         if ea:
-            out = ea_pruned_dtw_batch(
+            out = _batch(
                 query_n, cand, ub, window=plan.window,
                 band_width=plan.band_width, cb=cb, with_info=info, **knobs,
             )

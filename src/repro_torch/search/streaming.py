@@ -45,7 +45,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import guards
-from repro_torch.core.batch import ea_pruned_dtw_multi_batch
+from repro_torch.core.batch import _multi_batch
 from repro_torch.core.common import resolve_device
 from repro_torch.core.lower_bounds import cascade_keogh_cumulative
 from repro_torch.search.incumbents import IncumbentState, fold_min, initial_state
@@ -263,7 +263,7 @@ def rescore_windows(
         cb = cascade_keogh_cumulative(cand, as_float32(u, dev)[:, None, :],
                                       as_float32(low, dev)[:, None, :])
     ub = as_float32(ub, dev)
-    d = ea_pruned_dtw_multi_batch(
+    d = _multi_batch(
         qn, cand, ub[:, None].expand(nq, k), window=window,
         band_width=band_width, cb=cb, rows_per_step=rows_per_step,
         block_k=block_k, row_block=row_block,

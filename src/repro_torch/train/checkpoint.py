@@ -17,6 +17,14 @@ A bfloat16 tensor is written as ``repro`` writes a bfloat16 array: its raw
 bfloat16 leaf that ``|V2`` array of bit patterns; ``load_into`` copies a
 restored tree into a tree of tensors (the same bits for bfloat16).
 
+A placed tree (DTensor leaves on one ``DeviceMesh``,
+``distributed.sharding.place``) is saved whole: every rank of the mesh
+gathers each leaf (a collective, so every rank calls ``save`` or
+``submit`` at the same point), and the mesh's first rank writes the files;
+the others write nothing. ``load_into`` puts each restored leaf back into
+its DTensor with its placement (each rank keeps its shard of the full
+array it read).
+
 ``AsyncCheckpointer`` writes on a worker thread. ``submit`` copies every
 leaf on the caller's thread first (``repro`` takes its snapshot with
 ``jax.device_get``): ``.cpu()`` for a tensor on a card, a numpy copy for
@@ -34,6 +42,8 @@ import threading
 
 import numpy as np
 import torch
+
+from repro_torch.train.layout import full, mesh_of
 
 
 def _map(fn, tree, path=()):
@@ -63,11 +73,23 @@ def _flatten(tree) -> list:
 BF16_BITS = np.dtype("V2")  # how numpy stores a bfloat16 array's bits
 
 
+def _writes(tree) -> bool:
+    """Whether this process writes ``tree``'s files: always for a plain
+    tree; for a placed tree only on its mesh's first rank."""
+    mesh = mesh_of(tree)
+    if mesh is None:
+        return True
+    import torch.distributed as dist
+
+    return dist.get_rank() == int(mesh.mesh.flatten()[0])
+
+
 def _to_host(leaf, copy: bool = False) -> np.ndarray:
     """A leaf as a numpy array (a bfloat16 tensor as its ``|V2`` bit
-    patterns); ``copy`` makes it independent of ``leaf``."""
+    patterns; a DTensor gathered whole first, a collective); ``copy``
+    makes it independent of ``leaf``."""
     if isinstance(leaf, torch.Tensor):
-        leaf = leaf.detach()
+        leaf = full(leaf.detach())
         bf16 = leaf.dtype == torch.bfloat16
         if bf16:
             leaf = leaf.view(torch.int16)
@@ -112,6 +134,13 @@ def load_into(template, restored):
     no tensor."""
     if template is None:
         return None
+    if hasattr(template, "device_mesh"):  # a DTensor: keep its placement
+        from torch.distributed.tensor import distribute_tensor
+
+        whole = _host_tensor(restored, template.dtype).to(template.device)
+        return template.copy_(distribute_tensor(
+            whole, template.device_mesh, template.placements,
+            src_data_rank=None))
     if isinstance(template, torch.Tensor):
         return template.copy_(_host_tensor(restored, template.dtype))
     if isinstance(template, dict):
@@ -125,9 +154,14 @@ def load_into(template, restored):
 
 
 def save(ckpt_dir: str, tree, step: int) -> str:
-    """Synchronous atomic checkpoint. Returns the committed directory."""
-    named = _flatten(tree)
+    """Synchronous atomic checkpoint. Returns the committed directory (on
+    a rank that gathers a placed tree without writing it, the directory
+    its writer commits)."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if not _writes(tree):
+        _map(lambda _name, leaf: _to_host(leaf), tree)  # the gathers
+        return final
+    named = _flatten(tree)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -235,9 +269,10 @@ class AsyncCheckpointer:
     def submit(self, tree, step: int) -> None:
         if self._err:
             raise self._err
-        # A consistent snapshot, copied on this thread.
+        # A consistent snapshot, copied (and gathered) on this thread.
         snapshot = _map(lambda _name, leaf: _to_host(leaf, copy=True), tree)
-        self._q.put((snapshot, int(step)))
+        if _writes(tree):
+            self._q.put((snapshot, int(step)))
 
     def wait(self) -> None:
         """Barrier: block until every submitted checkpoint is on disk."""

@@ -17,7 +17,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.train.layout import get, leaves, stacks, tree_map, unflatten
+from repro_torch.train.layout import full, get, leaves, stacks, tree_map, unflatten
 
 
 class ErrorFeedback(NamedTuple):
@@ -42,7 +42,7 @@ def compress_grads(grads, ef: ErrorFeedback, cfg=None) -> tuple[Any, ErrorFeedba
     for stack in stacks(cfg, grads):
         pairs = [(get(grads, q), get(ef.residual, q)) for q in stack.paths]
         # x is formed twice rather than kept for the whole stack
-        amax = torch.stack([torch.max(torch.abs(g.float() + r))
+        amax = torch.stack([full(torch.max(torch.abs(g.float() + r)))
                             for g, r in pairs]).max()
         scale = torch.clamp_min(amax, 1e-12) / 127.0
         for q, (g, r) in zip(stack.paths, pairs):

@@ -15,6 +15,9 @@ per-layer lists (``interop.lm_params_from_numpy``), so ``stacks`` names
 the group of per-layer tensors that ``repro`` stacks into each of its
 leaves; the optimizer then reduces over the group's tensors, never
 building the stacked one.
+
+A placed tree's leaves are DTensors (``distributed.sharding.place``);
+``full`` reads one's whole value, and ``mesh_of`` finds a tree's mesh.
 """
 from __future__ import annotations
 
@@ -49,6 +52,23 @@ def leaves(tree, path=()):
     return [(path, tree)]
 
 
+def full(t):
+    """A DTensor's whole value as a plain tensor on this rank (a pending
+    reduction resolved, shards gathered: a collective over its mesh); any
+    other value as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def mesh_of(tree):
+    """The ``DeviceMesh`` of ``tree``'s first DTensor leaf, or None for a
+    tree of plain tensors (placed state is placed whole)."""
+    for _, leaf in leaves(tree):
+        mesh = getattr(leaf, "device_mesh", None)
+        if mesh is not None:
+            return mesh
+    return None
+
+
 def get(tree, path):
     for key in path:
         tree = tree[key]
@@ -56,21 +76,24 @@ def get(tree, path):
 
 
 def unflatten(like, values):
-    """``like``'s structure around ``values``, given in ``leaves`` order."""
-    it = iter(values)
+    """``like``'s structure around ``values``, given in ``leaves`` order.
 
-    def build(node):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        if isinstance(node, tuple) and hasattr(node, "_fields"):
-            return type(node)(*(build(v) for v in node))
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(v) for v in node)
-        return next(it)
+    A module-level recursion: a nested function that calls itself is a
+    reference cycle, which would keep ``values`` (a step's gradient
+    accumulator) alive after the call until the garbage collector ran."""
+    return _build(like, iter(values))
 
-    return build(like)
+
+def _build(node, it):
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*(_build(v, it) for v in node))
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(v, it) for v in node)
+    return next(it)
 
 
 def tree_map(fn, tree, *rest):

@@ -32,6 +32,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.train.layout import (
+    full,
     get,
     leaves,
     rank,
@@ -63,8 +64,11 @@ def _zeros(shape, device) -> torch.Tensor:
 
 @torch.no_grad()
 def global_norm(tree) -> torch.Tensor:
+    """The norm over every leaf, a plain 0-d tensor (each placed leaf's sum
+    of squares is reduced over its mesh before the leaves are added, in
+    the one-device order)."""
     return torch.sqrt(
-        sum(torch.sum(torch.square(x.float())) for _, x in leaves(tree)))
+        sum(full(torch.sum(torch.square(x.float()))) for _, x in leaves(tree)))
 
 
 @torch.no_grad()
@@ -206,7 +210,7 @@ def adafactor_update(
         # update clipping (RMS <= clip_threshold) over repro's whole leaf;
         # the preconditioned update is formed twice rather than kept
         size = sum(p.numel() for p in ps)
-        sq = sum(torch.sum(torch.square(precond(i))) for i in range(n))
+        sq = sum(full(torch.sum(torch.square(precond(i)))) for i in range(n))
         rms = torch.sqrt(sq / size + 1e-12)
         denom = torch.clamp_min(rms / clip_threshold, 1.0)
         for i, p in enumerate(ps):

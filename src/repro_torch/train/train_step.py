@@ -14,6 +14,17 @@ donated: ``train_step(state, batch)`` overwrites ``state``'s parameters
 and optimizer moments and returns a ``TrainState`` holding the same
 tensors with ``step`` advanced. A caller that needs the state before a
 step keeps a copy.
+
+On placed state (``distributed.sharding.place``: every tensor a DTensor on
+one ``DeviceMesh``) the same step runs as one program on every rank. The
+batch is placed by ``make_batch_specs`` (a batch that is already placed
+is kept). Each microbatch's gradient is cast to float32 and brought to
+its parameter's placement before it is accumulated: autograd returns
+whatever placement its last op left (a pending sum over the data axis,
+often), and a pending sum is reduced and scattered there, in float32.
+Plain tensors built inside the step (positions, masks, the learning
+rate) hold the same values on every rank and count as replicated
+(``hints.replicated_plain``). Metrics are plain 0-d tensors.
 """
 from __future__ import annotations
 
@@ -23,8 +34,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.common import resolve_device
+from repro_torch.distributed import hints
 from repro_torch.models.common import plain
-from repro_torch.train.layout import leaves, tree_map, unflatten
+from repro_torch.train.layout import full, leaves, mesh_of, tree_map, unflatten
 from repro_torch.train.optimizer import (
     apply_opt,
     clip_by_global_norm,
@@ -96,38 +108,71 @@ def make_train_step(
         assert b % n_micro == 0, (b, n_micro)
         return x.reshape((n_micro, b // n_micro) + tuple(x.shape[1:]))
 
+    def microbatches(batch: dict, mesh, dev) -> list[dict]:
+        """One dict a microbatch. One device: microbatch i is the i-th run
+        of rows. Placed: microbatch i is each data shard's i-th run of its
+        rows (no communication; the step's mean over the batch is the
+        same, its rows are grouped otherwise when there are several
+        microbatches)."""
+        if mesh is None:
+            micro = {k: split_micro(_batch_tensor(v, dev))
+                     for k, v in batch.items()}
+            return [{k: v[i] for k, v in micro.items()} for i in range(n_micro)]
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.distributed.sharding import place_batch
+
+        placed = place_batch(batch, mesh)
+        out = [{} for _ in range(n_micro)]
+        for k, x in placed.items():
+            parts = split_micro(x.to_local())
+            for i in range(n_micro):
+                out[i][k] = DTensor.from_local(parts[i], mesh, x.placements,
+                                               run_check=False)
+        return out
+
     def train_step(state: TrainState, batch: dict):
         params = state.params
         flat = [p for _, p in leaves(params)]
+        mesh = mesh_of(params)
         dev = flat[0].device
-        micro = {k: split_micro(_batch_tensor(v, dev)) for k, v in batch.items()}
-        acc = [torch.zeros(p.shape, dtype=torch.float32, device=dev) for p in flat]
-        lsum = torch.zeros((), dtype=torch.float32, device=dev)
-        for i in range(n_micro):
-            with torch.enable_grad():
-                loss = model.loss_fn(params, {k: v[i] for k, v in micro.items()})
-                grads = torch.autograd.grad(loss, flat, allow_unused=True)
-            for a, g in zip(acc, grads):
-                if g is not None:  # an unused parameter's gradient is zero
-                    a.add_(g)      # g in the params' dtype, summed in float32
-            lsum += loss.detach()
-            del grads, loss
-        for a in acc:
-            a.div_(n_micro)
-        grads = unflatten(params, acc)
-        loss = lsum / n_micro
+        with hints.replicated_plain(on=mesh is not None):
+            acc = [torch.zeros_like(p, dtype=torch.float32) for p in flat]
+            lsum = torch.zeros((), dtype=torch.float32, device=dev)
+            for mb in microbatches(batch, mesh, dev):
+                with torch.enable_grad():
+                    loss = model.loss_fn(params, mb)
+                    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+                for a, g, p in zip(acc, grads, flat):
+                    if g is None:  # an unused parameter's gradient is zero
+                        continue
+                    if mesh is not None:  # to the parameter's placement
+                        g = g.float().redistribute(p.device_mesh, p.placements)
+                    a.add_(g)  # g in the params' dtype, summed in float32
+                lsum += full(loss.detach())
+                del grads, loss
+            for a in acc:
+                a.div_(n_micro)
+            grads = unflatten(params, acc)
+            loss = lsum / n_micro
 
-        new_ef = state.ef
-        if grad_compression == "int8":
-            # int8 wire format for the cross-pod reduce, with error feedback
-            from repro_torch.train.compression import compress_grads
+            new_ef = state.ef
+            if grad_compression == "int8":
+                # int8 wire format for the cross-pod reduce, with error feedback
+                from repro_torch.train.compression import compress_grads
 
-            grads, new_ef = compress_grads(grads, state.ef, cfg)
+                grads, new_ef = compress_grads(grads, state.ef, cfg)
 
-        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
-        lr = cosine_schedule(state.step, base_lr, warmup, total_steps)
-        new_params, new_opt = apply_opt(cfg, params, grads, state.opt, lr)
-        metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
-        return TrainState(new_params, new_opt, state.step + 1, new_ef), metrics
+            grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+            lr = cosine_schedule(state.step, base_lr, warmup, total_steps)
+            new_params, new_opt = apply_opt(cfg, params, grads, state.opt, lr)
+            # This frame can outlive the call: remat's recomputation keeps
+            # the forward's frames (whose caller this is) in a reference
+            # cycle until the garbage collector runs. Drop the float32
+            # gradients now, or the next step allocates its own beside them.
+            del acc, grads, a, g
+            metrics = {"loss": loss, "grad_norm": gnorm, "lr": full(lr)}
+            return (TrainState(new_params, new_opt, state.step + 1, new_ef),
+                    metrics)
 
     return train_step

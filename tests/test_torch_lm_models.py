@@ -392,16 +392,22 @@ def test_linear_scan_is_the_recurrence(n):
 
 
 def test_hints_are_identities_and_refuse_axes():
+    """With no axes set the anchors are identities; with axes set they
+    refuse a plain tensor (an unplaced batch) rather than pass it on."""
     x = torch.ones(2, 3, 4)
     for fn in (hints.constrain_acts, hints.constrain_logits,
                hints.constrain_decode_scores):
         assert fn(x) is x
     hints.clear()
     assert hints.mesh_info() is None and r_hints.mesh_info() is None
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        hints.set_axes(("data",))
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        hints.set_axes(None, mesh=object())
+    hints.set_axes(("data",))
+    try:
+        for fn in (hints.constrain_acts, hints.constrain_logits):
+            with pytest.raises(RuntimeError, match="make_batch_specs"):
+                fn(x)
+    finally:
+        hints.clear()
+    assert hints.constrain_acts(x) is x
 
 
 def test_configs_match_repros():

@@ -227,7 +227,8 @@ def test_slab_unported_and_malformed_raise():
         out = fn(*args, with_info=True)
         d, rows = out[0], (out[1].rows if len(out) == 2 else out[1])
         assert torch.equal(d, fn(*args)) and rows.shape == d.shape
-    with pytest.raises(NotImplementedError, match="multivariate"):
+    # a multivariate query needs (K, m, dims) candidates, as in repro
+    with pytest.raises(guards.SearchInputError, match="candidates must be"):
         ea_pruned_dtw_batch(torch.stack([qn[0], qn[0]], 1), slab[0], BIG,
                             WINDOW)
     with pytest.raises(guards.SearchInputError):

@@ -273,6 +273,41 @@ def test_entry_points_default_to_the_card(monkeypatch):
         train.main(["--arch", "llama3.2-3b", "--reduced", "--steps", "1"])
 
 
+@pytest.mark.parametrize("remat", [True, False])
+def test_train_step_frees_its_gradients(remat):
+    """No float32 gradient accumulator outlives its step, even with the
+    garbage collector off: remat's recomputation keeps the step's frame in
+    a reference cycle, so the step drops them itself (else the next step
+    allocated its own beside them: 12.85 GB more at Llama-3.2-3B's width)."""
+    import gc
+    import weakref
+
+    cfg = dataclasses.replace(ARCHS["llama3.2-3b"].reduced(), remat=remat,
+                              num_microbatches=2)
+    model = build(cfg)
+    state = _state(model)
+    step = make_train_step(model)
+    made = []
+    zeros_like = torch.zeros_like
+
+    def recording(t, **kw):
+        out = zeros_like(t, **kw)
+        if kw.get("dtype") == torch.float32:
+            made.append(weakref.ref(out))
+        return out
+
+    gc.disable()
+    try:
+        torch.zeros_like = recording
+        state, _ = step(state, TokenStream(cfg.vocab, 4, 16, seed=0).batch_at(0))
+        torch.zeros_like = zeros_like
+        assert len(made) == len(leaves(state.params))
+        assert not any(r() is not None for r in made)
+    finally:
+        torch.zeros_like = zeros_like
+        gc.enable()
+
+
 def test_serving_parameters_stay_frozen():
     """``model.init`` still gives frozen parameters; ``init_state`` marks
     its own tensors trainable and leaves a serving tree untouched."""
@@ -285,10 +320,12 @@ def test_serving_parameters_stay_frozen():
 
 
 def test_launch_train_refuses_a_mesh():
+    """On a group of one, the production mesh and a model axis of 2 name
+    the world size they need."""
     from repro_torch.launch import train
 
     for flags in (["--production-mesh"], ["--model-parallel", "2"]):
-        with pytest.raises(SystemExit, match="item 7c"):
+        with pytest.raises(SystemExit, match="world size"):
             train.main(["--arch", "llama3.2-3b", "--reduced", "--device", "cpu",
                         *flags])
 
@@ -305,3 +342,44 @@ def test_launch_train_runs_on_the_cpu(tmp_path):
     assert lines[0] == "arch=llama3.2-3b mesh={'data': 1, 'model': 1}"
     assert lines[1].startswith("steps=12 loss ") and "restarts=0" in lines[1]
     assert ckpt.latest_step(str(tmp_path)) == 12
+
+
+def test_launch_train_one_rank_trains_unplaced(tmp_path):
+    """On a group of one, ``launch.train`` trains the unplaced state (a
+    mesh of one shards nothing): its losses are the unplaced step's bits."""
+    from repro_torch.launch import train
+
+    model = build(ARCHS["llama3.2-3b"].reduced())
+    state = _state(model)
+    step = make_train_step(model, base_lr=3e-4, warmup=10, total_steps=3)
+    stream = TokenStream(model.cfg.vocab, 4, 16, seed=0)
+    want = []
+    for i in range(3):
+        state, m = step(state, stream.batch_at(i))
+        want.append(float(m["loss"]))
+    log = train.main(["--arch", "llama3.2-3b", "--reduced", "--steps", "3",
+                      "--batch", "4", "--seq", "16", "--device", "cpu",
+                      "--ckpt", str(tmp_path)])
+    assert [m["loss"] for m in log] == want
+
+
+def test_mesh_takes_the_callers_device(monkeypatch):
+    """A mesh's tensors live on the device its caller names; an NCCL group
+    refuses a CPU mesh rather than moving the state off the card."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as meshes
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        assert meshes.make_local_mesh(1).device_type == "cpu"
+        assert meshes.make_local_mesh(1, device_type="cpu").device_type == "cpu"
+        monkeypatch.setattr(dist, "get_backend", lambda *a, **k: "nccl")
+        with pytest.raises(ValueError, match="NCCL"):
+            meshes.make_local_mesh(1, device_type="cpu")
+        with pytest.raises(ValueError, match="NCCL"):
+            meshes.make_production_mesh(device_type="cpu")
+    finally:
+        monkeypatch.undo()
+        dist.destroy_process_group()
