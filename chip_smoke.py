@@ -109,8 +109,14 @@ Drives ``repro_torch`` (never JAX, never ``repro``) on ``cuda:0``:
      every range, B once a range, A the ranges' rounds, the offline
      winners or a near tie;
   5. the same search at N = 50,000, l = 256, w = 25, Q = 4 on the card and
-     with ``device="cpu"``, for both drivers and both EA variants;
-     then the paper's four suites (``full``, ``pruned``, ``eapruned``,
+     with ``device="cpu"``, for both drivers and both EA variants; then a
+     stream on the card against the CPU (N = 20,000, l = 1024, w = 102,
+     ``STREAM_CROSS_Q`` queries, ``stream_chunk`` = 8192: the same
+     ``best_start`` and quarantine counts, distances within
+     ``TOL_CROSS``), and ``ea_search_round`` and the full-row
+     ``ea_pruned_dtw`` (the paper's example among them) on the card
+     against the CPU; then, once phase 10's subprocess arms have ended,
+     the paper's four suites (``full``, ``pruned``, ``eapruned``,
      ``eapruned_nolb``) through ``subsequence_search`` under both drivers,
      the host rounds with counters, at l = 1024, w = 102 on a reference
      cut to N = 20,000 (the baselines are row loops of PyTorch ops, about a
@@ -119,12 +125,6 @@ Drives ``repro_torch`` (never JAX, never ``repro``) on ``cuda:0``:
      the runs of one DP the same ``best_start``, rows and cells in the
      order ``eapruned <= pruned <= full``; and ``full`` and
      ``pruned`` on the card against the CPU at N = 20,000, l = 256, w = 25;
-     then a stream on the card against the CPU (N = 20,000, l = 1024,
-     w = 102, ``STREAM_CROSS_Q`` queries, ``stream_chunk`` = 8192: the
-     same ``best_start`` and quarantine counts, distances within
-     ``TOL_CROSS``), and ``ea_search_round`` and the full-row
-     ``ea_pruned_dtw`` (the paper's example among them) on the card
-     against the CPU;
   6. per-kernel times with CUDA events beside the plain versions' times and
      the bounds (C and E: the whole cold sweep of phase 3), kernel B's share
      of its bound, time per term and registers, kernel A's time per DP
@@ -200,19 +200,45 @@ Drives ``repro_torch`` (never JAX, never ``repro``) on ``cuda:0``:
      failure injected at step 4 through the supervisor's
      ``fail_injector``: one restart, the uninterrupted run's last loss bit
      for bit, the main's within ``TOL_TRAIN_CROSS``;
- 10. a ``{"stream": {...}}`` line of the streaming arms' numbers, a
+ 10. the dry-run ("phase 10 dryrun", ``launch.dryrun`` on torch's
+     ``fake`` backend; its arms (a), (b) and (c)'s trace run as
+     subprocesses, one thread each, since a fake world cannot share a
+     process with phase 9's NCCL group, beside phase 5's card-against-CPU
+     cross-check and stream cross-check, which time nothing, and the
+     script waits for them before phase 5's baselines): (a)
+     Llama-3.2-3B's four shapes on the ``(16, 16)`` production mesh over
+     a ``"cuda"`` mesh of the fake group, long_500k skipped, each cell's
+     per-device FLOPs, bytes, collectives by kind and trace seconds
+     printed; (b) kimi-k2 train_4k under ``--opt`` (the expert-parallel
+     MoE), its all-to-all count beside the same cell's on a CPU mesh
+     (where DTensor runs an all-to-all as an all-gather and the counter
+     still counts an all-to-all); (c) phase 8 (a)'s
+     step counted by ``roofline.op_stats`` on the card's tensors and
+     traced on a fake group of one: equal dot FLOPs, the analytic state
+     bytes the real state's, and ``perf_cell``'s three H100 terms beside
+     phase 8 (a)'s step ms and bound; (d) the search cell at N = 1e6 on
+     the ``(16, 16)`` fake group, rank 0's range on kernels B and A: its
+     best start a one-device search's over that range, its distance
+     within ``TOL_A``, its rounds and a round's collectives; (e)
+     Llama-3.2-3B served over parameters and cache placed on an NCCL
+     mesh of one: a 4 x 512 prefill and 8 decode steps of phase 7 (a)'s
+     tokens, logits within ``TOL_LM_BF16`` of phase 7 (a)'s (bit-equality
+     reported), prefill and decode ms beside phase 7 (a)'s;
+ 11. a ``{"stream": {...}}`` line of the streaming arms' numbers, a
      ``{"resilient": {...}}`` line of the host layer's arms, a
      ``{"sharded": {...}}`` line of the sharded arms, a
      ``{"lm_serve": {...}}`` line of phase 7's arms, a
      ``{"lm_train": {...}}`` line of phase 8's arms, a
      ``{"lm_sharded": {...}}`` line of phase 9's arms, a
+     ``{"dryrun": {...}}`` line of phase 10's arms, a
      ``{"kernels": [...]}`` line (``launches`` on the offline path that runs
      each kernel, ``stream_launches`` in streaming arm (a) for A and B and
      arm (c) for D, ``resilient_launches`` in arm (a) of phase 4 resilient
      for A and B and arm (b) for C, ``sharded_launches`` in phase 4
      sharded's arm (a), fused for A and B and slab for D, ``lm_launches``
      in phase 7, ``train_launches`` in phase 8 and
-     ``sharded_train_launches`` in phase 9, all 0), the card's name
+     ``sharded_train_launches`` in phase 9, all 0, ``dryrun_launches``
+     in phase 10's search cell, A and B), the card's name
      and power limit; the last line is ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result.
@@ -470,6 +496,18 @@ TOL_TRAIN_PARAMS = 1e-4
 TRAIN_FLIP_SHARE = 1e-3
 # The H100 SXM's dense bfloat16 tensor-core peak (NVIDIA data sheet).
 PEAK_BF16 = 989e12
+
+# Phase 10: the dry-run on torch's fake backend. Arms (a), (b) (on the
+# card's mesh and on a CPU mesh) and the traced half of (c) run as
+# subprocesses (a fake world cannot share a process with phase 9's NCCL
+# group), one thread each, beside phase 5's two cross-checks, which time
+# nothing; the script waits for them before the baselines, so no timed
+# phase runs beside them. Arm (d) runs as one in phase 10.
+DRY_ARCH = "llama3.2-3b"               # (a): its four shapes on (16, 16)
+DRY_MOE = ("kimi-k2-1t-a32b", "train_4k")  # (b), under --opt
+DRY_WAIT = 600                         # s from the arms' start, their deadline
+DRY_PLACED_STEPS = 8                   # (e): decode steps over placed state
+PERF_MD_TRAIN_BOUND_MS = 95.42         # PERF.md section 5: phase 8 (a)'s bound
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 and FP32 outside the
 # tensor cores.
@@ -2988,7 +3026,7 @@ def lm_full(torch, arch: str):
     held = lm_hold(torch, arch, model, cfg, params, gen, control)
     arm.update({k: v for k, v in gen.items() if k not in ("tokens", "logits")},
                **busy, device_busy_share=share, **held)
-    return arm, model, params
+    return arm, model, params, gen
 
 
 def lm_chunked(torch, model, params) -> dict:
@@ -3176,11 +3214,18 @@ def phase_lm(torch) -> dict:
         return out
 
     torch.cuda.empty_cache()
-    a, model, params = counted("a", lm_full, torch, LM_ARCH)
+    a, model, params, gen = counted("a", lm_full, torch, LM_ARCH)
+    # phase 10 (e) serves the same prompt over placed state: arm (a)'s
+    # tokens and its first logits are kept for it
+    placed_ref = {"tokens": gen["tokens"],
+                  "logits": gen["logits"][:, :1 + DRY_PLACED_STEPS].clone(),
+                  "prefill_ms": a["prefill_ms"],
+                  "decode_ms_p50": a["decode_ms_p50"]}
+    del gen
     b = counted("b", lm_chunked, torch, model, params)
     del model, params
     torch.cuda.empty_cache()
-    c, model, params = counted("c", lm_full, torch, LM_SSM_ARCH)
+    c, model, params, _ = counted("c", lm_full, torch, LM_SSM_ARCH)
     del model, params
     torch.cuda.empty_cache()
     d = counted("d", lambda: {name: lm_cross_arch(torch, name)
@@ -3188,7 +3233,7 @@ def phase_lm(torch) -> dict:
     return {"arms": {"a": {"arch": LM_ARCH, **a}, "b": b,
                      "c": {"arch": LM_SSM_ARCH, **c}, "d": d,
                      "launches": launches},
-            "launches": launches}
+            "launches": launches, "placed_ref": placed_ref}
 
 
 # ----------------------------- phase 8: LM training -------------------------
@@ -3921,6 +3966,392 @@ def phase_sharded_train(torch, train: dict) -> dict:
             "launches": launches}
 
 
+# ----------------------------- phase 10: dry-run ----------------------------
+
+
+def dry_env() -> dict:
+    import os
+
+    return {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+            "OMP_NUM_THREADS": "1"}
+
+
+def dry_cli(*args) -> list:
+    return [sys.executable, "-m", "repro_torch.launch.dryrun", "--force",
+            *args]
+
+
+def dry_start(workdir: str) -> dict:
+    """Start arms (a), (b) and (c)'s fake trace in the background, each
+    writing its output to a file of ``workdir``."""
+    jobs = {
+        "a": dry_cli("--arch", DRY_ARCH),
+        "b": dry_cli("--arch", DRY_MOE[0], "--shape", DRY_MOE[1], "--opt"),
+        "b_cpu": dry_cli("--arch", DRY_MOE[0], "--shape", DRY_MOE[1], "--opt",
+                         "--mesh-device", "cpu"),
+        "c": [sys.executable, str(ROOT / "chip_smoke.py"), "--dry-count",
+              json.dumps({"device": DEVICE, "batch": TRAIN_BATCH,
+                          "seq": TRAIN_SEQ})],
+    }
+    procs = {}
+    for arm, cmd in jobs.items():
+        out = open(Path(workdir) / f"dry_{arm}.log", "w")
+        procs[arm] = (subprocess.Popen(cmd, stdout=out,
+                                       stderr=subprocess.STDOUT,
+                                       env=dry_env(), cwd=ROOT), out)
+    return {"procs": procs, "dir": workdir, "t0": time.perf_counter()}
+
+
+def dry_stop(started: dict) -> None:
+    """Kill the arms still running and close their logs."""
+    for proc, out in started["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+
+
+def dry_join(started: dict) -> dict:
+    """Wait for every arm (DRY_WAIT from their start; then all are
+    killed), check each exit code (0) and keep each one's output in
+    ``started["text"]``; returns ``started``."""
+    deadline = started["t0"] + DRY_WAIT
+    started["text"] = {}
+    try:
+        for arm, (proc, _) in started["procs"].items():
+            try:
+                rc = proc.wait(timeout=max(deadline - time.perf_counter(), 1.0))
+            except subprocess.TimeoutExpired:
+                rc = None
+            text = (Path(started["dir"]) / f"dry_{arm}.log").read_text()
+            tail = "\n".join(text.splitlines()[-30:])
+            check(rc == 0, f"dry-run arm ({arm}) exited {rc}:\n{tail}")
+            started["text"][arm] = text
+    finally:
+        dry_stop(started)
+    say(f"[10 dryrun] subprocess arms {sorted(started['procs'])} done in "
+        f"{time.perf_counter() - started['t0']:.2f} s from their start")
+    return started
+
+
+def dry_count_worker(job: dict) -> int:
+    """Phase 10 (c)'s traced half: phase 8 (a)'s cell (TRAIN_ARCH at full
+    width, TRAIN_BATCH x TRAIN_SEQ, its step's options) traced on a fake
+    group of one under ``op_stats``; prints one ``RESULT <json>`` line."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.registry import build
+
+    cfg = ARCHS[TRAIN_ARCH]
+    shape = ShapeConfig("phase8_a", "train", job["seq"], job["batch"])
+    with dryrun.fake_world(1):
+        mesh = make_local_mesh(1, job["device"])
+        res = dryrun.trace_step(build(cfg), shape, mesh, step_kw=dict(
+            base_lr=TRAIN_LR, warmup=TRAIN_WARMUP, total_steps=TRAIN_TOTAL))
+    print("RESULT " + json.dumps(res), flush=True)
+    return 0
+
+
+def dry_cell_line(res: dict) -> str:
+    if res.get("status") == "skipped":
+        return f"{res['arch']} {res['shape']}: skipped ({res['reason']})"
+    coll = res["collectives"]
+    return (f"{res['arch']} {res['shape']} on {res['mesh']} "
+            f"({res['device']} mesh): {res['cost_analysis']['flops']:.4e} dot "
+            f"FLOPs, {res['cost_analysis']['bytes accessed']:.4e} bytes, "
+            f"collectives {coll['total_bytes']:.4e} bytes by kind "
+            f"{coll['per_op_bytes']} counts {coll['counts']}; param / state "
+            f"/ cache bytes a device {res.get('param_bytes_per_device')} / "
+            f"{res.get('state_bytes_per_device')} / "
+            f"{res.get('cache_bytes_per_device')}, fits one card "
+            f"{res.get('fits_one_card')}; traced in {res.get('trace_s')} s")
+
+
+def dry_cells(torch) -> dict:
+    """Arms (a) and (b): the subprocesses' cells."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun
+
+    def cell(arch, shape, opt, device=None):
+        with open(dryrun.cell_path(arch, shape, False, opt,
+                                   device=device)) as f:
+            return json.load(f)
+
+    out = {}
+    a = {}
+    for shape in SHAPES:
+        res = cell(DRY_ARCH, shape, False)
+        say(f"[10 dryrun] (a) {dry_cell_line(res)}")
+        want = "skipped" if shape == "long_500k" else "ok"
+        check(res["status"] == want,
+              f"dry-run cell {DRY_ARCH} {shape}: {res['status']} "
+              f"{res.get('error')}")
+        a[shape] = {k: res.get(k) for k in (
+            "status", "mesh", "device", "trace_s", "param_bytes_per_device",
+            "state_bytes_per_device", "cache_bytes_per_device",
+            "fits_one_card", "cost_analysis", "collectives")}
+        if want == "ok":
+            check(res["cost_analysis"]["flops"] > 0
+                  and res["collectives"]["total_bytes"] > 0,
+                  f"dry-run cell {DRY_ARCH} {shape} counted nothing")
+    out["a"] = a
+    res = cell(*DRY_MOE, True)
+    say(f"[10 dryrun] (b) {DRY_MOE[0]} {DRY_MOE[1]} --opt (the "
+        f"expert-parallel MoE, 8 microbatches): {dry_cell_line(res)}")
+    check(res["status"] == "ok",
+          f"dry-run cell {DRY_MOE}: {res['status']} {res.get('error')}")
+    a2a = res["collectives"]["counts"].get("all-to-all", 0)
+    on_cpu = cell(*DRY_MOE, True, "cpu")
+    check(on_cpu["status"] == "ok", f"dry-run cell {DRY_MOE} on a CPU mesh: "
+          f"{on_cpu['status']} {on_cpu.get('error')}")
+    cpu_a2a = on_cpu["collectives"]["counts"].get("all-to-all", 0)
+    say(f"[10 dryrun] (b) all-to-alls on the {res['device']} mesh: {a2a}; on "
+        f"a CPU mesh of this host, where DTensor runs them as all-gathers "
+        f"and the counter counts all-to-alls "
+        f"({on_cpu['hlo_stats'].get('cpu_alltoall_fallbacks')} fallbacks): "
+        f"{cpu_a2a}, counts {on_cpu['collectives']['counts']}")
+    out["b"] = {"arch": DRY_MOE[0], "shape": DRY_MOE[1], "status": res["status"],
+                "device": res["device"], "trace_s": res["trace_s"],
+                "cost_analysis": res["cost_analysis"],
+                "collectives": res["collectives"], "all_to_all": a2a,
+                "cpu_mesh_all_to_all": cpu_a2a,
+                "cpu_mesh_collectives": on_cpu["collectives"],
+                "fits_one_card": res["fits_one_card"]}
+    return out
+
+
+def dry_count(torch, started: dict, train_a: dict) -> dict:
+    """Arm (c): phase 8 (a)'s step counted by ``op_stats`` on the card's
+    real tensors (a fresh state from TRAIN_SEED, phase 8 (a)'s first batch)
+    and traced on a fake group of one (the subprocess): equal dot FLOPs,
+    and the traced cell's analytic state bytes the real state's bytes.
+    Then ``perf_cell``'s three H100 terms beside phase 8 (a)'s step."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import perf_cell
+    from repro_torch.models.registry import build
+    from repro_torch.roofline.op_stats import OpCounter
+    from repro_torch.train.layout import leaves
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    cfg = ARCHS[TRAIN_ARCH]
+    model = build(cfg)
+    torch.cuda.empty_cache()
+    state = init_state(model, torch.Generator(device=DEVICE).manual_seed(
+        TRAIN_SEED), device=DEVICE)
+    nbytes = sum(t.numel() * t.element_size() for _, t in leaves(state))
+    step = make_train_step(model, base_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                           total_steps=TRAIN_TOTAL)
+    batch = train_data(cfg, TRAIN_BATCH, TRAIN_SEQ, 0)
+    t0 = time.perf_counter()
+    with OpCounter() as counter:
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    real = counter.stats()
+    loss = float(m["loss"])
+    del state, m
+    torch.cuda.empty_cache()
+    text = started["text"]["c"]
+    line = [x for x in text.splitlines() if x.startswith("RESULT ")][-1]
+    traced = json.loads(line[len("RESULT "):])
+    st = traced["hlo_stats"]
+    terms = perf_cell.terms(st)
+    a_ms = train_a["step_ms_p50"]
+    say(f"[10 dryrun] (c) {TRAIN_ARCH} {TRAIN_BATCH} x {TRAIN_SEQ}, "
+        f"{cfg.num_microbatches} microbatches, remat, AdamW: dot FLOPs on the "
+        f"card's tensors {real['dot_flops']:.6e} (one step under the "
+        f"counter, {counted_s:.2f} s, loss {loss:.4f}), traced on a fake "
+        f"group of one {st['dot_flops']:.6e} (in {traced['trace_s']} s); "
+        f"memory bytes {real['mem_bytes']:.4e} and {st['mem_bytes']:.4e}; "
+        f"state bytes: real {nbytes}, analytic "
+        f"{traced['state_bytes_per_device']}")
+    say(f"[10 dryrun] (c) perf_cell's H100 terms: compute "
+        f"{terms['compute_s'] * 1e3:.2f} ms, memory "
+        f"{terms['memory_s'] * 1e3:.2f} ms, collective "
+        f"{terms['collective_s'] * 1e3:.4f} ms; phase 8 (a)'s step "
+        f"{a_ms:.2f} ms (p50, this run), its bound "
+        f"{train_a['bound_ms']:.2f} ms (PERF.md section 5: "
+        f"{PERF_MD_TRAIN_BOUND_MS} ms)")
+    check(real["dot_flops"] == st["dot_flops"],
+          f"(c) dot FLOPs differ: {real['dot_flops']} real, "
+          f"{st['dot_flops']} traced")
+    check(nbytes == traced["state_bytes_per_device"],
+          f"(c) state bytes differ: {nbytes} real, "
+          f"{traced['state_bytes_per_device']} analytic")
+    return {"dot_flops_real": real["dot_flops"], "dot_flops_traced":
+            st["dot_flops"], "mem_bytes_real": real["mem_bytes"],
+            "mem_bytes_traced": st["mem_bytes"], "state_bytes_real": nbytes,
+            "state_bytes_analytic": traced["state_bytes_per_device"],
+            "trace_s": traced["trace_s"], "counted_step_s": counted_s,
+            **{f"h100_{k}": v for k, v in terms.items()},
+            "phase8_step_ms_p50": a_ms, "phase8_bound_ms": train_a["bound_ms"]}
+
+
+def dry_search(torch, workdir: str) -> dict:
+    """Arm (d): the search cell (``--search``) on the ``(16, 16)`` fake
+    group: rank 0's range runs kernels B and A on the card. Its best start
+    must be a one-device search's over that range, its distance within
+    TOL_A; the rounds and a round's collectives are printed."""
+    from repro_torch.configs import SEARCH_CONFIG as SC
+    from repro_torch.data.synthetic import make_dataset, make_queries
+    from repro_torch.launch import dryrun
+    from repro_torch.search import multi_query_search
+
+    log = Path(workdir) / "dry_d.log"
+    with open(log, "w") as out:
+        rc = subprocess.call(dry_cli("--search"), stdout=out,
+                             stderr=subprocess.STDOUT, env=dry_env(), cwd=ROOT)
+    check(rc == 0, f"dry-run search cell exited {rc}:\n"
+          + "\n".join(log.read_text().splitlines()[-30:]))
+    with open(Path(dryrun.RESULTS_DIR) / "dtw-search__pod.json") as f:
+        res = json.load(f)
+    per = res["windows_per_rank"]
+    ref = make_dataset(dryrun.SEARCH_DATASET, SC.ref_len, seed=0).astype("float32")
+    query = make_queries(dryrun.SEARCH_DATASET, 1, SC.query_len,
+                         seed=1).astype("float32")
+    one = multi_query_search(
+        torch.as_tensor(ref[:per + SC.query_len - 1], device=DEVICE),
+        torch.as_tensor(query, device=DEVICE), SC.query_len, SC.window,
+        batch=SC.batch, device=DEVICE)
+    torch.cuda.synchronize()
+    want_s, want_d = int(one.best_start[0]), float(one.best_dist[0])
+    rel = abs(res["best_dist"] - want_d) / max(abs(want_d), 1.0)
+    say(f"[10 dryrun] (d) search N={SC.ref_len} l={SC.query_len} on "
+        f"{res['mesh']} ({res['device']} mesh): rank 0's {per} windows in "
+        f"{res['rounds']} rounds ({res['search_s']:.2f} s), best start "
+        f"{res['best_start']} at {res['best_dist']:.6f}; a one-device search "
+        f"over that range: {want_s} at {want_d:.6f} (rel {rel:.2e}, tol "
+        f"{TOL_A}); a round's collectives {res['per_round']}, in all "
+        f"{res['collectives']['counts']} ({res['collectives']['total_bytes']} "
+        f"bytes); kernel launches {res['kernel_launches']}")
+    check(res["best_start"] == want_s, "(d) rank 0's best start is not the "
+          f"one-device search's: {res['best_start']} against {want_s}")
+    check(rel <= TOL_A, f"(d) rank 0's distance parts by {rel}")
+    return {"rounds": res["rounds"], "per_round": res["per_round"],
+            "windows_per_rank": per, "best_start": res["best_start"],
+            "best_dist": res["best_dist"], "one_device_best_start": want_s,
+            "one_device_best_dist": want_d, "collectives": res["collectives"],
+            "search_s": res["search_s"], "launches": res["kernel_launches"]}
+
+
+def dry_placed_serve(torch, ref: dict) -> dict:
+    """Arm (e): LM_ARCH at full width in bfloat16 from phase 7 (a)'s seed,
+    its parameters (``make_param_specs``) and cache (``make_cache_specs``)
+    placed on an NCCL mesh of one with the anchors set: a LM_BATCH x
+    LM_PROMPT prefill and DRY_PLACED_STEPS decode steps of phase 7 (a)'s
+    tokens, twice (the second timed). Logits within TOL_LM_BF16 of phase
+    7 (a)'s (bit-equality reported); prefill ms and decode ms a token
+    (p50) beside phase 7 (a)'s."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed import hints
+    from repro_torch.distributed.sharding import (
+        batch_axes,
+        make_cache_specs,
+        make_param_specs,
+        place,
+        place_batch,
+    )
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.common import plain
+    from repro_torch.models.registry import build
+    from repro_torch.train.layout import full
+
+    cfg = ARCHS[LM_ARCH]
+    model = build(cfg)
+    tokens = ref["tokens"]
+    total = tokens.shape[1]  # phase 7 (a)'s cache length
+    started = launch.join_group(torch.device(DEVICE))
+    try:
+        mesh = make_local_mesh(1)
+        params = model.init(torch.Generator(device=DEVICE).manual_seed(
+            LM_SEED), DEVICE)
+        placed = place(plain(params), mesh, make_param_specs(model, mesh))
+        put = lambda t: place_batch({"x": t}, mesh)["x"]
+
+        def run():
+            cache = place(model.init_cache(LM_BATCH, total, DEVICE), mesh,
+                          make_cache_specs(model, mesh, LM_BATCH, total))
+            evs, logits = [], []
+            hints.set_axes(batch_axes(mesh), mesh=mesh)
+            try:
+                with torch.no_grad():
+                    for i in range(1 + DRY_PLACED_STEPS):
+                        start = torch.cuda.Event(enable_timing=True)
+                        stop = torch.cuda.Event(enable_timing=True)
+                        start.record()
+                        if i == 0:
+                            lg, cache = model.prefill(
+                                placed, cache, tokens=put(tokens[:, :LM_PROMPT]))
+                        else:
+                            pos = LM_PROMPT + i - 1
+                            lg, cache = model.decode_step(
+                                placed, cache, put(tokens[:, pos:pos + 1]), pos)
+                        stop.record()
+                        evs.append((start, stop))
+                        logits.append(full(lg)[:, -1].float())
+            finally:
+                hints.clear()
+            torch.cuda.synchronize()
+            return torch.stack(logits, 1), [a.elapsed_time(b) for a, b in evs]
+
+        logits, _ = run()
+        _, ms = run()
+    finally:
+        if started:
+            dist.destroy_process_group()
+    want = ref["logits"]
+    err = float((logits - want).abs().max())
+    same = bool(torch.equal(logits, want))
+    dec = pct([x / 1e3 for x in ms[1:]], 50)
+    say(f"[10 dryrun] (e) {LM_ARCH} served over placed parameters and cache "
+        f"(mesh of one, NCCL): {LM_BATCH} x {LM_PROMPT} prefill "
+        f"{ms[0]:.2f} ms (phase 7 (a): {ref['prefill_ms']:.2f} ms), decode "
+        f"{dec:.3f} ms a token (p50 of {DRY_PLACED_STEPS}; phase 7 (a): "
+        f"{ref['decode_ms_p50']:.3f} ms); logits against phase 7 (a)'s max "
+        f"abs {err:.4g} (tol {TOL_LM_BF16}), bit-equal {same}")
+    check(bool(torch.isfinite(logits).all()), "(e) non-finite logits")
+    check(err <= TOL_LM_BF16, f"(e) placed logits part from phase 7 (a)'s "
+          f"by {err}")
+    del params, placed
+    torch.cuda.empty_cache()
+    return {"prefill_ms": ms[0], "decode_ms_p50": dec, "decode_ms": ms[1:],
+            "phase7_prefill_ms": ref["prefill_ms"],
+            "phase7_decode_ms_p50": ref["decode_ms_p50"],
+            "logits_max_abs": err, "bit_equal": same}
+
+
+def phase_dryrun(torch, started: dict, lm: dict, train: dict) -> dict:
+    """Phase 10 (see the module docstring). The main process's arms
+    launch none of the five kernels (counted); arm (d)'s subprocess counts
+    its own from 0. ``started`` holds the subprocess arms' outputs
+    (``dry_join``)."""
+    launches = {}
+
+    def counted(arm, fn, *args):
+        zero_launches()
+        out = fn(*args)
+        launches[arm] = launches_now()
+        check(sum(launches[arm].values()) == 0,
+              f"dry-run arm ({arm}) launched a search kernel: {launches[arm]}")
+        return out
+
+    d = dry_search(torch, started["dir"])
+    launches["d"] = {k: d["launches"].get(k, 0) for k in KERNELS}
+    check(launches["d"]["dtw_ea_multi_fused"] > 0
+          and launches["d"]["lb_keogh_all_windows"] > 0,
+          f"(d) the search cell launched {launches['d']}")
+    e = counted("e", dry_placed_serve, torch, lm["placed_ref"])
+    c = counted("c", dry_count, torch, started, train["arms"]["a"])
+    cells = dry_cells(torch)
+    return {"arms": {**cells, "c": c, "d": d, "e": e, "launches": launches},
+            "launches": launches}
+
+
 def main() -> int:
     import os
 
@@ -3983,13 +4414,21 @@ def main() -> int:
                   queries, host, sweep, stream, workdir)
     shard = timed("phase 4 sharded", phase_sharded, torch, cfg, ref, queries,
                   host, slab)
-    timed("phase 5", phase_cross_check, torch)
+    # phase 10's subprocess arms, beside the two cross-checks (no timing)
+    dry = dry_start(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    try:
+        timed("phase 5", phase_cross_check, torch)
+        timed("phase 5 stream cross-check", phase_stream_cross, torch, cfg)
+    except BaseException:
+        dry_stop(dry)
+        raise
+    timed("phase 10 subprocess arms (the wait)", dry_join, dry)
     timed("phase 5 baselines", phase_baselines, torch, cfg)
-    timed("phase 5 stream cross-check", phase_stream_cross, torch, cfg)
     kernels = timed("phase 6", phase_times, torch, kb, ka, kd, kce, loop)
     lm = timed("phase 7 lm serve", phase_lm, torch)
     train = timed("phase 8 lm train", phase_train, torch)
     sharded = timed("phase 9 lm sharded", phase_sharded_train, torch, train)
+    dryrun = timed("phase 10 dryrun", phase_dryrun, torch, dry, lm, train)
     # Launches on the path that runs each kernel: host rounds (A, B), the
     # persistent sweep (C), the slab arms (D, E).
     launches = dict(host["launches"])
@@ -4018,6 +4457,8 @@ def main() -> int:
                                for arm, n in train["launches"].items()}
         k["sharded_train_launches"] = {
             arm: n[k["name"]] for arm, n in sharded["launches"].items()}
+        # the search cell's (arm (d)); the other arms launch none
+        k["dryrun_launches"] = dryrun["launches"]["d"][k["name"]]
     say(f"total {time.perf_counter() - t_all:.2f} s")
     say(json.dumps({"stream": stream["arms"]}))
     say(json.dumps({"resilient": resil["arms"]}))
@@ -4025,6 +4466,7 @@ def main() -> int:
     say(json.dumps({"lm_serve": lm["arms"]}))
     say(json.dumps({"lm_train": train["arms"]}))
     say(json.dumps({"lm_sharded": sharded["arms"]}))
+    say(json.dumps({"dryrun": dryrun["arms"]}))
     say(json.dumps({"kernels": kernels}))
     say(card["smi"])
     say(json.dumps({"ok": True, "device": {
@@ -4035,4 +4477,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--shard"]:
         sys.exit(shard_worker(json.loads(sys.argv[2])))
+    if sys.argv[1:2] == ["--dry-count"]:
+        sys.exit(dry_count_worker(json.loads(sys.argv[2])))
     sys.exit(main())

@@ -32,9 +32,14 @@ optimizers, gradient compression and the microbatched train step
 is placed by ``repro``'s partitioning rules over a ``torch.distributed``
 ``DeviceMesh`` as DTensors (``distributed.sharding``, ``launch.mesh``),
 with real activation anchors (``distributed.hints``), the expert-parallel
-MoE (``models.mlp.moe_ep``) and ``elastic_reshard``. The dry-run and the
-roofline tooling are not ported yet (ROADMAP.md Queue 1 items 7c.3 and
-7d).
+MoE (``models.mlp.moe_ep``) and ``elastic_reshard``; serving runs on
+placed parameters and caches too. The dry-run (``launch.dryrun``: every
+cell of ``repro``'s traced on torch's ``fake`` process group under
+``FakeTensorMode``), ``launch.perf_cell`` and the roofline
+(``roofline.op_stats``, ``roofline.analysis``, on the H100's rates)
+complete it: the port does all that ``repro`` does, but for three
+modules it needs no counterpart of (``core/backend.py``,
+``core/compat.py``, ``kernels/ref.py``).
 
 Entry points take a ``device`` argument and run on CUDA unless the caller
 passes ``device="cpu"``; with no device given and no CUDA present they

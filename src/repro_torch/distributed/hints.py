@@ -17,13 +17,18 @@ otherwise run unsharded without saying so.
 ``replicate_dims`` is the port's own: where DTensor has no sharding rule
 for an op the models use, the model code brings that operand's named
 dimensions to ``Replicate`` first, as GSPMD would reshard it.
+``write_into`` writes a placed cache in place, shard by shard.
 ``to_local`` / ``from_local`` are ``shard_map``'s two edges: a region
 that DTensor's rules do not cover (the attention core, the
-expert-parallel MoE) runs on each rank's shards as plain tensors.
+expert-parallel MoE) runs on each rank's shards as plain tensors;
+``on_batch_rows`` runs one on each rank's batch rows (mamba2's mixer,
+the RG-LRU). ``row_parallel`` reduces an out-projection's pending sum.
 """
 from __future__ import annotations
 
 import contextlib
+
+import torch
 
 _BATCH_AXES: tuple | None = None
 _TP_AXIS: str | None = None
@@ -63,8 +68,9 @@ def _dtensor():
 
 def _constrain(x, spec: tuple):
     """``x`` redistributed to ``spec`` on the set mesh (``x``'s own when
-    none was given)."""
-    from repro_torch.distributed.sharding import P, placements
+    none was given), its leading (batch) dimension over the innermost
+    batch axes that divide it (``sharding.divisible_axes``)."""
+    from repro_torch.distributed.sharding import P, divisible_axes, placements
 
     if not isinstance(x, _dtensor()):
         raise RuntimeError(
@@ -72,6 +78,7 @@ def _constrain(x, spec: tuple):
             "while sharding axes are set: place the batch with "
             "distributed.sharding.make_batch_specs (or hints.clear())")
     mesh = _MESH if _MESH is not None else x.device_mesh
+    spec = (divisible_axes(mesh, spec[0], x.shape[0]),) + tuple(spec[1:])
     want = placements(mesh, P(*spec))
     if tuple(x.placements) == want:
         return x
@@ -106,6 +113,18 @@ def constrain_decode_scores(scores):
     return _constrain(scores, (_BATCH_AXES, None, None, None, _TP_AXIS))
 
 
+def seq_whole(x):
+    """Sequence parallelism's all-gather (Megatron's ``g``): a norm's
+    (B, S, D) output, which feeds a block's products, with its sequence
+    dimension whole where the anchors shard it over the TP axis. DTensor
+    on torch 2.11 refuses to flatten a sequence-sharded (B, S) into a
+    product's rows; GSPMD gathers it there. Any other tensor, or without
+    sequence parallelism, as it is."""
+    if not _SEQ_PARALLEL or x.ndim < 3:
+        return x
+    return replicate_dims(x, 1)
+
+
 def replicate_dims(x, *dims):
     """``x`` with dimensions ``dims`` replicated (a pending sum reduced)
     where ``x`` is a DTensor; any other tensor as it is. For the operands
@@ -122,6 +141,51 @@ def replicate_dims(x, *dims):
     if want == tuple(x.placements):
         return x
     return x.redistribute(x.device_mesh, want)
+
+
+def row_parallel(y):
+    """A row-parallel product's output (an attention's, an MLP's or a
+    mixer's out-projection, its contraction split over ``"model"``) with
+    the pending sum reduced, as Megatron's all-reduce does; GSPMD reduces
+    it at the residual add. Left pending, DTensor resolves it at the next
+    nonlinear op with a reduce-scatter that may split the token rows over
+    ``"model"`` inside their batch split, and a product on such rows has
+    no sharding rule on every torch. The gradient leaves reduced too
+    (Megatron's identity on a replicated gradient): a pending sum there
+    makes DTensor compute the products of the backward twice over
+    ``"model"``. Any other tensor as it is."""
+    if not isinstance(y, _dtensor()):
+        return y
+    return _RowParallel.apply(y)
+
+
+class _RowParallel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y):
+        return replicate_dims(y)  # no dimension named: the sums reduced
+
+    @staticmethod
+    def backward(ctx, g):
+        return replicate_dims(g)
+
+
+def write_into(dst, src) -> None:
+    """``dst.copy_(src)`` in ``dst``'s placement (a cache written in place
+    by prefill or decode): a placed ``dst`` takes ``src`` brought to its
+    placements (a plain ``src`` counts as replicated) and each rank
+    copies into its own shard."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(dst, DTensor):
+        dst.copy_(src)
+        return
+    if not isinstance(src, DTensor):
+        src = DTensor.from_local(src, dst.device_mesh,
+                                 (Replicate(),) * dst.device_mesh.ndim,
+                                 run_check=False)
+    if tuple(src.placements) != tuple(dst.placements):
+        src = src.redistribute(dst.device_mesh, dst.placements)
+    dst.to_local().copy_(src.to_local())
 
 
 _PLAIN_DEPTH = 0
@@ -189,6 +253,32 @@ def from_local(t, mesh, spec: tuple, shape, sums: tuple = ()):
                              shape=torch.Size(shape),
                              stride=_contiguous_stride(shape))
     return out.redistribute(mesh, want) if sums else out
+
+
+def on_batch_rows(fn, params: dict, *xs):
+    """``fn(params, *xs)`` on each rank's batch rows (``shard_map`` over
+    the batch axes of ``xs[0]``'s mesh, everything whole over the other
+    axes): for a region whose reshapes and scans DTensor's rules do not
+    keep batch-sharded. ``params`` (name -> DTensor) come whole to every
+    rank, each batch shard's gradient of them a part; each of ``xs``
+    ((B, ...) DTensors, or None) comes split by rows; each output of
+    ``fn`` (a tuple of (B_local, ...) tensors) goes back split the same
+    way."""
+    from repro_torch.distributed.sharding import row_axes
+
+    mesh = xs[0].device_mesh
+    b = xs[0].shape[0]
+    bax = row_axes(mesh, b)
+
+    def rows(t):
+        return None if t is None else to_local(
+            t, mesh, (bax,) + (None,) * (t.dim() - 1))
+
+    local = {k: to_local(v, mesh, (None,) * v.dim(), sums=bax or ())
+             for k, v in params.items()}
+    outs = fn(local, *(rows(t) for t in xs))
+    return tuple(from_local(t, mesh, (bax,) + (None,) * (t.dim() - 1),
+                            (b,) + tuple(t.shape[1:])) for t in outs)
 
 
 def _contiguous_stride(shape) -> tuple:

@@ -34,6 +34,7 @@ GSPMD does. ``place(tree, mesh, specs)`` distributes a tree of tensors.
 """
 from __future__ import annotations
 
+import math
 from typing import Any
 
 from repro_torch.models.common import plain
@@ -239,6 +240,20 @@ def row_axes(mesh, rows: int):
     return ba if rows % total == 0 else None
 
 
+def divisible_axes(mesh, axes, rows: int):
+    """The innermost run of ``axes`` (a name or a tuple, major to minor)
+    whose sizes' product divides ``rows``: ``axes`` itself when it does,
+    ``("data",)`` without ``"pod"`` when only that divides, None when
+    none does. DTensor splits no dimension unevenly here; GSPMD would
+    pad."""
+    sizes = _sizes(mesh)
+    axes = axes if isinstance(axes, tuple) else (axes,)
+    for i in range(len(axes)):
+        if rows % math.prod(sizes[a] for a in axes[i:]) == 0:
+            return axes[i:]
+    return None
+
+
 def make_batch_specs(batch_shapes: dict, mesh) -> dict:
     """Batch leaves shard their leading (global batch) dim on (pod, data).
 
@@ -408,6 +423,6 @@ def _map_with_path(fn, tree, path=()):
 __all__ = [
     "P", "PartitionSpec", "NamedSharding", "spec_for_param",
     "make_param_specs", "make_state_specs", "batch_axes",
-    "make_batch_specs", "row_axes", "spec_for_cache", "make_cache_specs", "named",
+    "make_batch_specs", "row_axes", "divisible_axes", "spec_for_cache", "make_cache_specs", "named",
     "placements", "place", "place_batch", "param_shapes",
 ]

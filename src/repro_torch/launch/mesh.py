@@ -5,20 +5,15 @@ process group. A mesh is a ``torch.distributed`` ``DeviceMesh`` over the
 default process group, which the caller starts (``torchrun`` or
 ``init_process_group``); its dimension names are ``repro``'s axis names.
 
-``repro`` targets TPU v5e pods (16 x 16 = 256 chips a pod, a leading
-``"pod"`` axis for two pods); its constants stay below under their own
-names. The port runs on NVIDIA H100 cards, whose constants sit beside
-them. The roofline reads both.
+``repro``'s production meshes are ``(16, 16)`` ``("data", "model")`` and
+``(2, 16, 16)`` ``("pod", "data", "model")``. The port runs on NVIDIA
+H100 cards, whose rates below are what the roofline
+(``roofline.analysis``, ``launch.perf_cell``) divides by.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
-
-# repro's target, one TPU v5e chip.
-PEAK_FLOPS = 197e12        # bf16 per chip (TPU v5e class)
-HBM_BW = 819e9             # bytes/s per chip
-ICI_BW = 50e9              # bytes/s per link (ring model)
 
 # The port's card: NVIDIA H100 SXM5 80 GB at its full 700 W power limit,
 # from NVIDIA's H100 datasheet (dense rates, no sparsity). A card set
@@ -29,10 +24,16 @@ H100_POWER_LIMIT_W = 700.0
 H100_PEAK_BF16_FLOPS = 989e12   # FLOP/s, bf16 / fp16 tensor cores
 H100_PEAK_FP32_FLOPS = 67e12    # FLOP/s, float32 outside the tensor cores
 H100_HBM_BW = 3.35e12           # bytes/s, HBM3
-# NVLink 4: 18 links a card, 900 GB/s both directions together, so
-# 25 GB/s a link a direction: the per-link rate of ICI_BW's ring model.
+H100_HBM_BYTES = 80e9           # bytes of device memory a card
+# NVLink 4: 18 links a card at 25 GB/s a direction each (900 GB/s both
+# directions together). An NVSwitch node (HGX H100, 8 cards) lets a ring
+# run over all 18, so a card moves 450 GB/s a direction within its node.
 H100_NVLINK_LINKS = 18
-H100_NVLINK_BW = 25e9           # bytes/s per link, one direction
+H100_NVLINK_BW = 450e9          # bytes/s a card, one direction, in a node
+H100_NODE_CARDS = 8             # cards a node
+# Between nodes a ring runs at the NIC's rate: one 400 Gb/s ConnectX-7 a
+# card (NVIDIA DGX H100), 50 GB/s a direction.
+H100_NIC_BW = 50e9              # bytes/s a card, one direction
 
 PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
                      True: ((2, 16, 16), ("pod", "data", "model"))}

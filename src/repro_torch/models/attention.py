@@ -44,11 +44,32 @@ def init_attention(gen, cfg, cross: bool = False) -> dict:
     return p
 
 
+def _split_heads(t, heads: int, head_dim: int):
+    """``t`` (..., heads * head_dim) as (..., heads, head_dim).
+
+    A projection's last dimension is sharded over ``"model"`` whenever the
+    mesh divides its width (``sharding.spec_for_param``), which need not
+    divide its head count (8 KV heads on a 16-way axis). DTensor cannot
+    split heads unevenly, so that dimension is first brought to
+    ``Replicate``, as GSPMD reshards it. Where the heads divide, the
+    reshape keeps the sharding and nothing moves."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if isinstance(t, DTensor):
+        ways = 1
+        for pl, n in zip(t.placements, t.device_mesh.shape):
+            if isinstance(pl, Shard) and pl.dim == t.ndim - 1:
+                ways *= n
+        if heads % ways:
+            t = hints.replicate_dims(t, -1)
+    return t.reshape(t.shape[:-1] + (heads, head_dim))
+
+
 def _project_q(p, x, cfg):
     q = x @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
-    return q.reshape(x.shape[:-1] + (cfg.n_heads, cfg.head_dim))
+    return _split_heads(q, cfg.n_heads, cfg.head_dim)
 
 
 def _project_kv(p, x, cfg):
@@ -57,8 +78,8 @@ def _project_kv(p, x, cfg):
     if "bk" in p:
         k = k + p["bk"]
         v = v + p["bv"]
-    shp = x.shape[:-1] + (cfg.n_kv, cfg.head_dim)
-    return k.reshape(shp), v.reshape(shp)
+    return (_split_heads(k, cfg.n_kv, cfg.head_dim),
+            _split_heads(v, cfg.n_kv, cfg.head_dim))
 
 
 def _scores(q, k):
@@ -216,7 +237,7 @@ def attention(p, x, positions, cfg, mask=None, kv_x=None, kv_positions=None,
 
     out = _per_shard(core, q, k, v, positions if use_rope else None,
                      kpos if use_rope else None, mask)
-    return out @ p["wo"]
+    return hints.row_parallel(out @ p["wo"])
 
 
 def init_kv_cache(batch: int, max_len: int, cfg, dtype=None,
@@ -230,6 +251,132 @@ def init_kv_cache(batch: int, max_len: int, cfg, dtype=None,
     }
 
 
+def _placed(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def _cache_shard(c):
+    """One layer's placed cache tensor (B, T, K, hd): (this rank's shard,
+    the first slot it holds, the mesh axis that splits T or None)."""
+    from torch.distributed.tensor import Shard
+
+    mesh = c.device_mesh
+    local = c.to_local()
+    axis = None
+    for name, pl, n in zip(mesh.mesh_dim_names, c.placements, mesh.shape):
+        if isinstance(pl, Shard) and pl.dim == 1 and n > 1:
+            axis = name
+    lo = mesh.get_local_rank(axis) * local.shape[1] if axis else 0
+    return local, lo, axis
+
+
+def _rows(t, mesh, bax):
+    """This rank's batch rows of ``t`` (B, ...), whole over the rest."""
+    from repro_torch.distributed.hints import to_local
+
+    return to_local(t, mesh, (bax,) + (None,) * (t.dim() - 1))
+
+
+def fill_cache(c, k):
+    """Write a prompt's keys (or values) ``k`` (B, S, K, hd) into one
+    layer's cache ``c`` (B, T, K, hd) in place: zero-padded when T >= S,
+    else the last T positions rolled to slot = position % T (``repro``'s
+    new cache). A placed cache is written shard by shard: each rank
+    writes the slots it holds for its batch rows, with ``k`` brought
+    whole over ``"model"`` (its heads) first."""
+    s = k.shape[1]
+    if not _placed(c):
+        t = c.shape[1]
+        if t < s:
+            c.copy_(torch.roll(k[:, s - t:], shifts=s % t, dims=1))
+        else:
+            c[:, :s] = k
+            c[:, s:] = 0
+        return
+    from repro_torch.distributed.sharding import row_axes
+
+    local, lo, _ = _cache_shard(c)
+    t, n = c.shape[1], local.shape[1]
+    kl = _rows(k, c.device_mesh, row_axes(c.device_mesh, c.shape[0]))
+    if t < s:
+        local.copy_(torch.roll(kl[:, s - t:], shifts=s % t, dims=1)[:, lo:lo + n])
+        return
+    m = max(min(lo + n, s) - lo, 0)
+    local[:, :m] = kl[:, lo:lo + m]
+    local[:, m:] = 0
+
+
+def _attend_decode_shards(q, k, v, mask, mesh, bax, axis, b):
+    """Decode attention of this rank's rows on its cache shard, as GSPMD
+    partitions it under ``constrain_decode_scores`` (flash-decode): q
+    (B_loc, 1, H, hd) whole over ``"model"``, k/v (B_loc, T_loc, K, hd)
+    the rank's slots, mask (B_loc, 1, T_loc). With the cache length split
+    over ``axis``, the softmax's max and sum and the PV product are
+    combined by an all-reduce over it; with ``axis`` None this is
+    ``_attend``'s decode path, op for op."""
+    import torch.distributed._functional_collectives as funcol
+
+    from repro_torch.distributed.hints import from_local, to_local
+
+    bl, s, h, hd = q.shape
+    kheads = k.shape[2]
+    g = h // kheads
+    scores = _scores(q.reshape(bl, s, kheads, g, hd), k) * hd ** -0.5
+    scores = torch.where(mask[:, None, None, :, :], scores, NEG)
+    spec = (bax, None, None, None, axis)
+    names = list(mesh.mesh_dim_names)
+    ways = mesh.shape[names.index(axis)] if axis else 1
+    scores = to_local(hints.constrain_decode_scores(from_local(
+        scores, mesh, spec, (b, kheads, g, s, k.shape[1] * ways))), mesh, spec)
+    group = (mesh, names.index(axis)) if axis else None
+    m = torch.amax(scores, dim=-1, keepdim=True)
+    if axis:
+        m = funcol.all_reduce(m, "max", group)
+    e = torch.exp(scores - m)
+    den = torch.sum(e, dim=-1, keepdim=True)
+    if axis:
+        den = funcol.all_reduce(den, "sum", group)
+    out = torch.einsum("bkgst,btkh->bskgh", (e / den).to(v.dtype), v)
+    if axis:
+        out = funcol.all_reduce(out, "sum", group)
+    return out.reshape(bl, s, h * hd)
+
+
+def _decode_placed(q, k_new, v_new, cache, slot, mask_of, pos, use_rope,
+                   cfg):
+    """``decode_attention`` on a placed cache (the cache length over
+    ``"model"``, ``sharding.spec_for_cache``): the new key and value are
+    written into the shard that holds ``slot``, in place, and each rank
+    attends over its own slots (``_attend_decode_shards``). ``k_new`` /
+    ``v_new`` None: cross-attention over a cache written at prefill."""
+    from repro_torch.distributed.hints import from_local
+    from repro_torch.distributed.sharding import row_axes
+
+    kc, lo, axis = _cache_shard(cache["k"])
+    vc = cache["v"].to_local()
+    mesh = cache["k"].device_mesh
+    b = q.shape[0]
+    bax = row_axes(mesh, b)
+    ql = _rows(q, mesh, bax)
+    dev = kc.device
+    if use_rope:
+        posv = torch.full((ql.shape[0], 1), pos, dtype=torch.int64, device=dev)
+        ql = rope(ql, posv, cfg.rope_theta)
+    if k_new is not None:
+        kl, vl = _rows(k_new, mesh, bax), _rows(v_new, mesh, bax)
+        if use_rope:
+            kl = rope(kl, posv, cfg.rope_theta)
+        if lo <= slot < lo + kc.shape[1]:
+            kc[:, slot - lo] = kl[:, 0].to(kc.dtype)
+            vc[:, slot - lo] = vl[:, 0].to(vc.dtype)
+    j = lo + torch.arange(kc.shape[1], device=dev)[None, None, :]
+    m = mask_of(j).expand(ql.shape[0], 1, kc.shape[1])
+    out = _attend_decode_shards(ql, kc, vc, m, mesh, bax, axis, b)
+    return from_local(out, mesh, (bax, None, None), (b, 1, out.shape[-1]))
+
+
 def decode_attention(p, x, pos: int, cache: dict, cfg, window: int = 0,
                      use_rope: bool = True, write_pos: int | None = None):
     """One-token decode with KV cache. x: (B, 1, D); pos: absolute position.
@@ -239,8 +386,8 @@ def decode_attention(p, x, pos: int, cache: dict, cfg, window: int = 0,
     absolute position so relative rotations stay correct across wraps.
     The slot is clamped into the cache, as ``dynamic_update_slice`` clamps
     its start: a non-rolling decode at ``pos >= cache length`` writes the
-    last slot. Writes the cache in place; returns (output (B, 1, D),
-    cache).
+    last slot. Writes the cache in place (a placed cache in its
+    placement, ``_decode_placed``); returns (output (B, 1, D), cache).
     """
     b = x.shape[0]
     t = cache["k"].shape[1]
@@ -248,30 +395,44 @@ def decode_attention(p, x, pos: int, cache: dict, cfg, window: int = 0,
     rolling = write_pos is not None
     q = _project_q(p, x, cfg)
     k_new, v_new = _project_kv(p, x, cfg)
+    slot = min(max(int(wp), 0), t - 1)
+
+    def mask_of(j):
+        if rolling:
+            # once warmed up, every slot holds one of the last ``t`` positions
+            return torch.logical_or(
+                j <= pos, torch.full_like(j, pos >= t, dtype=torch.bool))
+        m = j <= pos
+        if window:
+            m = torch.logical_and(m, j > pos - window)
+        return m
+
+    if _placed(cache["k"]):
+        out = _decode_placed(q, k_new, v_new, cache, slot, mask_of, pos,
+                             use_rope, cfg)
+        return hints.row_parallel(out @ p["wo"]), cache
     if use_rope:
         posv = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
         q = rope(q, posv, cfg.rope_theta)
         k_new = rope(k_new, posv, cfg.rope_theta)
-    slot = min(max(int(wp), 0), t - 1)
     k, v = cache["k"], cache["v"]
     k[:, slot] = k_new[:, 0].to(k.dtype)
     v[:, slot] = v_new[:, 0].to(v.dtype)
     j = torch.arange(t, device=x.device)[None, None, :]
-    if rolling:
-        # once warmed up, every slot holds one of the last ``t`` positions
-        m = torch.logical_or(j <= pos, torch.full_like(j, pos >= t, dtype=torch.bool))
-    else:
-        m = j <= pos
-        if window:
-            m = torch.logical_and(m, j > pos - window)
-    out = _attend(q, k, v, m.expand(b, 1, t), cfg)
-    return out @ p["wo"], {"k": k, "v": v}
+    out = _attend(q, k, v, mask_of(j).expand(b, 1, t), cfg)
+    return hints.row_parallel(out @ p["wo"]), {"k": k, "v": v}
 
 
 def decode_cross_attention(p, x, enc_k, enc_v, cfg):
-    """Cross-attention during decode; encoder K/V precomputed at prefill."""
+    """Cross-attention during decode; encoder K/V precomputed at prefill
+    (placed: each rank attends over its slots, ``_decode_placed``)."""
     b, t = enc_k.shape[0], enc_k.shape[1]
     q = _project_q(p, x, cfg)
+    if _placed(enc_k):
+        out = _decode_placed(q, None, None, {"k": enc_k, "v": enc_v}, 0,
+                             lambda j: torch.ones_like(j, dtype=torch.bool),
+                             0, False, cfg)
+        return hints.row_parallel(out @ p["wo"])
     mask = torch.ones((b, 1, t), dtype=torch.bool, device=x.device)
     out = _attend(q, enc_k, enc_v, mask, cfg)
-    return out @ p["wo"]
+    return hints.row_parallel(out @ p["wo"])

@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import hints
+
 
 def pdtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
@@ -150,7 +152,9 @@ def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     bax = row_axes(mesh, tokens.shape[0])
     n_tp = dict(zip(names, mesh.shape)).get("model", 1)
     tp = "model" if vocab % n_tp == 0 else None
-    table = to_local(embed, mesh, (tp, None), sums=names)
+    # each rank's gradient of the table is a part over the axes that split
+    # the tokens; over the others it computed the same rows
+    table = to_local(embed, mesh, (tp, None), sums=tuple(bax or ()))
     tok = to_local(tokens, mesh, (bax,) + (None,) * (tokens.dim() - 1))
     lo = mesh.get_local_rank("model") * table.shape[0] if tp else 0
     own = (tok >= lo) & (tok < lo + table.shape[0])
@@ -160,13 +164,26 @@ def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
                       sums=("model",) if tp else ())
 
 
+def tied_unembed(embed: torch.Tensor) -> torch.Tensor:
+    """The tied table (V, D) as the unembedding (D, V). On a DTensor its
+    D dimension comes whole first (FSDP's gather before use), so the
+    product's gradient returns in the table's own placement, as
+    ``embed_lookup``'s does, and autograd adds the two gradients without
+    a plan that DTensor on torch 2.11 lacks (a sharded gradient made a
+    pending sum, which a vocabulary that the model axis does not divide
+    asks for)."""
+    return hints.replicate_dims(embed, 1).T
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMS norm scaled by ``1 + scale``, in float32, cast back to x's type."""
+    """RMS norm scaled by ``1 + scale``, in float32, cast back to x's type
+    (with sequence parallelism on placed tensors, computed on sequence
+    shards and then gathered: ``hints.seq_whole``)."""
     dt = x.dtype
     x = x.float()
     var = torch.mean(x * x, dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
-    return (x * (1.0 + scale.float())).to(dt)
+    return hints.seq_whole((x * (1.0 + scale.float())).to(dt))
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:

@@ -28,6 +28,7 @@ from repro_torch.models.common import (
     remat,
     rms_norm,
     softplus,
+    tied_unembed,
 )
 
 
@@ -172,28 +173,13 @@ _MIXER_PARAMS = ("conv_w", "dt_bias", "a_log", "d_skip", "out_ln")
 
 def _mixer_per_shard(p, u, cfg, state, conv_tail):
     """``_mixer`` on each rank's batch rows when ``u`` is a DTensor
-    (``shard_map`` over the batch axes; the mixer's inputs whole over
-    ``"model"``): its split of the in-projection, the scan's chunk
-    reshapes and the segment sums have no DTensor sharding rule that
-    keeps the batch sharded through them."""
-    from repro_torch.distributed.hints import from_local, to_local
-    from repro_torch.distributed.sharding import row_axes
-
-    mesh = u.device_mesh
-    bax = row_axes(mesh, u.shape[0])
-    parts = bax or ()  # each batch shard's gradient is a part
-
-    def rows(t):
-        return None if t is None else to_local(
-            t, mesh, (bax,) + (None,) * (t.dim() - 1))
-
-    local = {k: to_local(p[k], mesh, (None,) * p[k].dim(), sums=parts)
-             for k in _MIXER_PARAMS}
-    y, last, tail = _mixer(local, rows(u), cfg, rows(state), rows(conv_tail))
-    bs, s, _ = u.shape
-    whole = lambda t: from_local(t, mesh, (bax,) + (None,) * (t.dim() - 1),
-                                 (bs,) + tuple(t.shape[1:]))
-    return whole(y), whole(last), whole(tail)
+    (``hints.on_batch_rows``; the mixer's inputs whole over ``"model"``):
+    its split of the in-projection, the scan's chunk reshapes and the
+    segment sums have no DTensor sharding rule that keeps the batch
+    sharded through them."""
+    return hints.on_batch_rows(
+        lambda lp, u, st, tl: _mixer(lp, u, cfg, st, tl),
+        {k: p[k] for k in _MIXER_PARAMS}, u, state, conv_tail)
 
 
 def layer_forward(p, x, cfg, state=None, conv_tail=None):
@@ -201,7 +187,7 @@ def layer_forward(p, x, cfg, state=None, conv_tail=None):
     u = rms_norm(x, p["ln"], cfg.norm_eps) @ p["w_in"]
     mixer = _mixer_per_shard if hasattr(u, "device_mesh") else _mixer
     y, last, new_tail = mixer(p, u, cfg, state, conv_tail)
-    return y @ p["w_out"], (last, new_tail)
+    return hints.row_parallel(y @ p["w_out"]), (last, new_tail)
 
 
 def init_params(gen: torch.Generator, cfg, device=None) -> ParamTree:
@@ -228,7 +214,7 @@ def forward(params, cfg, tokens, embeds=None):
     for lp in params["layers"]:
         x = body(lp, x)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = hints.constrain_logits(x @ params["embed"].T)
+    logits = hints.constrain_logits(x @ tied_unembed(params["embed"]))
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -251,16 +237,17 @@ def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
 
 def prefill(params, cfg, cache, tokens):
     """Run the full prompt, writing the final per-layer SSM states + conv
-    tails into ``cache`` in place (as ``decode_step`` does); returns the
-    last-token logits and the cache."""
+    tails into ``cache`` in place (as ``decode_step`` does; a placed cache
+    in its placement, ``hints.write_into``); returns the last-token logits
+    and the cache."""
     x = hints.constrain_acts(embed_lookup(params["embed"], tokens))
     for i, lp in enumerate(params["layers"]):
         y, (st, tail) = layer_forward(lp, x, cfg)
         x = hints.constrain_acts(x + y)
-        cache["state"][i] = st
-        cache["tail"][i] = tail
+        hints.write_into(cache["state"][i], st)
+        hints.write_into(cache["tail"][i], tail)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = x[:, -1:] @ params["embed"].T
+    logits = x[:, -1:] @ tied_unembed(params["embed"])
     return logits, {"state": cache["state"], "tail": cache["tail"]}
 
 
@@ -272,7 +259,7 @@ def decode_step(params, cfg, cache, tokens, pos):
         y, (st, tail) = layer_forward(lp, x, cfg, state=cache["state"][i],
                                       conv_tail=cache["tail"][i])
         x = x + y
-        cache["state"][i] = st
-        cache["tail"][i] = tail
+        hints.write_into(cache["state"][i], st)
+        hints.write_into(cache["tail"][i], tail)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ params["embed"].T, {"state": cache["state"], "tail": cache["tail"]}
+    return x @ tied_unembed(params["embed"]), {"state": cache["state"], "tail": cache["tail"]}

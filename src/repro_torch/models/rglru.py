@@ -42,6 +42,7 @@ from repro_torch.models.common import (
     remat,
     rms_norm,
     softplus,
+    tied_unembed,
 )
 from repro_torch.models.mlp import init_mlp, mlp
 
@@ -90,6 +91,24 @@ def _rg_lru(p, x, h0=None):
     return h.to(x.dtype), h[:, -1]
 
 
+_LRU_PARAMS = ("a_gate", "i_gate", "a_param")
+
+
+def _rg_lru_per_shard(p, x, h0=None):
+    """``_rg_lru`` on each rank's batch rows when ``x`` is a DTensor
+    (``hints.on_batch_rows``; the recurrence whole over ``"model"``, as
+    mamba2's mixer): through the gates' products and the scan DTensor
+    splits the token rows over ``"model"`` in the backward, where a
+    product on such rows has no sharding rule."""
+    return hints.on_batch_rows(_rg_lru, {k: p[k] for k in _LRU_PARAMS},
+                               x, h0)
+
+
+def _lru(p, x, h0=None):
+    lru = _rg_lru_per_shard if hasattr(x, "device_mesh") else _rg_lru
+    return lru(p, x, h0)
+
+
 def _conv1d(p, x, tail=None):
     """Causal depthwise conv, width cfg.conv_width. x (B,S,W)."""
     k = p["conv_w"].shape[0]
@@ -110,8 +129,8 @@ def rglru_block(p, x, h0=None, conv_tail=None):
     gate = gelu(x @ p["w_gate_in"])
     u = x @ p["w_x"]
     u, new_tail = _conv1d(p, u, conv_tail)
-    y, h_last = _rg_lru(p, u, h0)
-    return (y * gate) @ p["w_out"], h_last, new_tail
+    y, h_last = _lru(p, u, h0)
+    return hints.row_parallel((y * gate) @ p["w_out"]), h_last, new_tail
 
 
 def _init_block(gen, cfg, kind) -> dict:
@@ -176,7 +195,7 @@ def forward(params, cfg, tokens, embeds=None):
     for i, p in enumerate(params["remainder"]):
         x = _apply_block(cfg, x, positions, p, pattern[i % len(pattern)])
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = hints.constrain_logits(x @ params["embed"].T)
+    logits = hints.constrain_logits(x @ tied_unembed(params["embed"]))
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -228,8 +247,8 @@ def _decode_block(cfg, x, p, kind, cc, i, pos, attn_len):
         gate = gelu(h_in @ p["rec"]["w_gate_in"])
         u = h_in @ p["rec"]["w_x"]
         u, new_tail = _conv1d(p["rec"], u, cc[f"tail{i}"])
-        y, h_last = _rg_lru(p["rec"], u, cc[f"h{i}"])
-        h = (y * gate) @ p["rec"]["w_out"]
+        y, h_last = _lru(p["rec"], u, cc[f"h{i}"])
+        h = hints.row_parallel((y * gate) @ p["rec"]["w_out"])
         new_c[f"h{i}"] = h_last
         new_c[f"tail{i}"] = new_tail
     else:
@@ -243,7 +262,9 @@ def _decode_block(cfg, x, p, kind, cc, i, pos, attn_len):
 
 
 def decode_step(params, cfg, cache, tokens, pos):
-    """One-token decode; attention caches are rolling local windows."""
+    """One-token decode; attention caches are rolling local windows. Every
+    cache entry is written in place (a placed one in its placement,
+    ``hints.write_into``)."""
     x = embed_lookup(params["embed"], tokens)
     pattern = _pattern(cfg)
     grouped = cache["grouped"]
@@ -256,11 +277,12 @@ def decode_step(params, cfg, cache, tokens, pos):
         for i, kind in enumerate(pattern):
             x, upd = _decode_block(cfg, x, gp[i], kind, cc, i, pos, attn_len)
             for key, val in upd.items():
-                grouped[key][g] = val
+                hints.write_into(grouped[key][g], val)
     rem = cache["rem"]
     for i, p in enumerate(params["remainder"]):
         x, upd = _decode_block(cfg, x, p, pattern[i % len(pattern)], rem, i,
                                pos, attn_len)
-        rem.update(upd)
+        for key, val in upd.items():
+            hints.write_into(rem[key], val)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ params["embed"].T, {"grouped": grouped, "rem": rem}
+    return x @ tied_unembed(params["embed"]), {"grouped": grouped, "rem": rem}

@@ -20,6 +20,7 @@ from repro_torch.models.attention import (
     _project_kv,
     attention,
     decode_attention,
+    fill_cache,
     init_attention,
     init_kv_cache,
 )
@@ -32,6 +33,7 @@ from repro_torch.models.common import (
     remat,
     rms_norm,
     rope,
+    tied_unembed,
 )
 from repro_torch.models.mlp import init_mlp, init_moe, mlp, moe, moe_ep
 
@@ -64,7 +66,8 @@ def init_params(gen: torch.Generator, cfg, device=None) -> ParamTree:
 
 
 def _unembed(params, cfg):
-    return params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return (tied_unembed(params["embed"]) if cfg.tie_embeddings
+            else params["unembed"])
 
 
 def _ffn(cfg, lp, x):
@@ -149,13 +152,13 @@ def prefill(params, cfg, tokens=None, embeds=None, cache=None):
     ``cache`` is written in place, as ``decode_step`` writes it: per layer
     the prompt's roped keys and values, zero-padded, or for a rolling
     cache shorter than the prompt its last ``max_len`` positions rolled to
-    slot = position % max_len. That is ``repro``'s new cache.
+    slot = position % max_len (``attention.fill_cache``; a placed cache
+    in its placement). That is ``repro``'s new cache.
     """
     x = _embed_in(params, cfg, tokens, embeds)
     b, s, _ = x.shape
     positions = _positions(x)
     kc, vc = cache["k"], cache["v"]
-    max_len = kc.shape[2]
 
     for i, lp in enumerate(params["layers"]):
         h_in = rms_norm(x, lp["ln1"], cfg.norm_eps)
@@ -163,15 +166,8 @@ def prefill(params, cfg, tokens=None, embeds=None, cache=None):
         k = rope(k, positions, cfg.rope_theta)
         x = x + attention(lp["attn"], h_in, positions, cfg)
         h2, _ = _ffn(cfg, lp, x)
-        if max_len < s:
-            shift = s % max_len
-            kc[i] = torch.roll(k[:, s - max_len:], shifts=shift, dims=1)
-            vc[i] = torch.roll(v[:, s - max_len:], shifts=shift, dims=1)
-        else:
-            kc[i, :, :s] = k
-            vc[i, :, :s] = v
-            kc[i, :, s:] = 0
-            vc[i, :, s:] = 0
+        fill_cache(kc[i], k)
+        fill_cache(vc[i], v)
         x = hints.constrain_acts(x + h2)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x[:, -1:] @ _unembed(params, cfg)

@@ -20,6 +20,7 @@ from repro_torch.models.attention import (
     attention,
     decode_attention,
     decode_cross_attention,
+    fill_cache,
     init_attention,
     init_kv_cache,
 )
@@ -32,6 +33,7 @@ from repro_torch.models.common import (
     remat,
     rms_norm,
     sinusoidal_positions,
+    tied_unembed,
 )
 from repro_torch.models.mlp import init_mlp, mlp
 
@@ -118,7 +120,7 @@ def decode_train(params, cfg, enc_out: torch.Tensor,
     for lp in params["dec_layers"]:
         x = body(lp, x, enc_out)
     x = rms_norm(x, params["dec_norm"], cfg.norm_eps)
-    return hints.constrain_logits(x @ params["embed"].T)
+    return hints.constrain_logits(x @ tied_unembed(params["embed"]))
 
 
 def forward(params, cfg, tokens=None, embeds=None):
@@ -151,10 +153,18 @@ def init_cache(cfg, batch: int, max_len: int, enc_len: int | None = None,
 
 
 def prefill_encoder(params, cfg, frames: torch.Tensor, cache: dict) -> dict:
-    """Run the encoder and stash per-layer cross K/V into the cache."""
+    """Run the encoder and stash per-layer cross K/V into the cache (a
+    placed cache in place, in its placement, its encoder length the
+    frames')."""
     enc_out = encode(params, cfg, frames)
     kvs = [_project_kv(lp["cross_attn"], enc_out, cfg)
            for lp in params["dec_layers"]]
+    if hasattr(cache["ek"], "device_mesh"):
+        # a placed cache is written in place, shard by shard
+        for i, (k, v) in enumerate(kvs):
+            fill_cache(cache["ek"][i], k)
+            fill_cache(cache["ev"][i], v)
+        return {**cache}
     ek = torch.stack([k for k, _ in kvs])
     ev = torch.stack([v for _, v in kvs])
     return {**cache, "ek": ek, "ev": ev}
@@ -181,4 +191,4 @@ def decode_step(params, cfg, cache, tokens, pos: int):
         x = x + h
         x = x + mlp(lp["mlp"], rms_norm(x, lp["ln3"], cfg.norm_eps))
     x = rms_norm(x, params["dec_norm"], cfg.norm_eps)
-    return x @ params["embed"].T, {**cache}
+    return x @ tied_unembed(params["embed"]), {**cache}

@@ -113,16 +113,35 @@ def make_train_step(
         of rows. Placed: microbatch i is each data shard's i-th run of its
         rows (no communication; the step's mean over the batch is the
         same, its rows are grouped otherwise when there are several
-        microbatches)."""
-        if mesh is None:
-            micro = {k: split_micro(_batch_tensor(v, dev))
+        microbatches). Where a data shard holds fewer rows than there are
+        microbatches (kimi-k2's 16 on the multi-pod mesh's 8 rows a
+        shard), microbatch i is the global batch's i-th run of rows,
+        split over the inner batch axes whose size divides its rows
+        (``"data"`` without ``"pod"``) and whole over the others."""
+        from torch.distributed.tensor import DTensor, distribute_tensor
+
+        from repro_torch.distributed.sharding import (
+            P,
+            batch_axes,
+            divisible_axes,
+            place_batch,
+            placements,
+        )
+
+        if mesh is not None:
+            placed = place_batch(batch, mesh)
+            rows = next(iter(placed.values())).to_local().shape[0]
+        if mesh is None or rows % n_micro:
+            micro = {k: split_micro(_batch_tensor(full(v), dev))
                      for k, v in batch.items()}
-            return [{k: v[i] for k, v in micro.items()} for i in range(n_micro)]
-        from torch.distributed.tensor import DTensor
-
-        from repro_torch.distributed.sharding import place_batch
-
-        placed = place_batch(batch, mesh)
+            out = [{k: v[i] for k, v in micro.items()} for i in range(n_micro)]
+            if mesh is None:
+                return out
+            rows = next(iter(out[0].values())).shape[0]
+            axes = divisible_axes(mesh, batch_axes(mesh), rows)
+            return [{k: distribute_tensor(v, mesh, placements(mesh, P(
+                axes, *([None] * (v.dim() - 1)))), src_data_rank=None)
+                for k, v in mb.items()} for mb in out]
         out = [{} for _ in range(n_micro)]
         for k, x in placed.items():
             parts = split_micro(x.to_local())

@@ -9,8 +9,11 @@ A rank joins a gloo world through the file store ``STORE``; ``STATE`` is
 a pickle of ``repro``'s mistral-nemo-12b ``reduced()`` train state as
 numpy (``state_arrays``); ``OUT`` a directory for the CLI's checkpoints.
 World 2 runs its cases on ``(1, 2)`` ``("data", "model")``, world 4 on
-``(2, 2)``, plus the multi-pod, elastic and anchor cases. Each rank prints
-one ``RESULT <json>`` line.
+``(2, 2)``, plus the multi-pod, elastic and anchor cases, the head
+split on ``(1, 4)``, microbatches finer than a data shard's rows and
+the MoE's gradients on placed state; world 2 also serves on placed
+state. Each rank
+prints one ``RESULT <json>`` line.
 """
 from __future__ import annotations
 
@@ -320,6 +323,273 @@ def cli_case(out_dir, rank) -> dict:
     return res
 
 
+SERVE_ARCHS = (MISTRAL, KIMI, MAMBA, "recurrentgemma-2b", "whisper-large-v3")
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 2, 8, 4
+
+
+def _serve_configs(name) -> dict:
+    """``{label: reduced config}``: a MoE both expert-parallel and dense,
+    with nothing dropped, so the experts' split changes no token."""
+    from repro_torch.configs import ARCHS
+
+    cfg = ARCHS[name].reduced()
+    if not cfg.is_moe:
+        return {name: cfg}
+    return {f"{name}/{impl}": dataclasses.replace(
+        cfg, capacity_factor=100.0, moe_impl=impl) for impl in ("ep", "dense")}
+
+
+def _serve(model, params, cache, inputs, mesh=None) -> list:
+    """Prefill (``forward`` for an arch without one) and ``SERVE_STEPS``
+    decode steps: the logits of each, as numpy. With ``mesh``, the
+    inputs are placed and each logits tensor gathered."""
+    import torch
+
+    from repro_torch.distributed.sharding import place_batch
+    from repro_torch.train.layout import full
+
+    put = (lambda t: place_batch({"x": t}, mesh)["x"]) if mesh else (
+        lambda t: torch.as_tensor(t))
+    out = []
+    with torch.no_grad():
+        if model.prefill is None:
+            logits = model.forward(params, tokens=put(inputs["tokens"]))[0]
+        elif "embeds" in inputs:
+            cache = model.prefill(params, cache, embeds=put(inputs["embeds"]))
+            logits = None
+        else:
+            logits, cache = model.prefill(params, cache,
+                                          tokens=put(inputs["tokens"]))
+        if logits is not None:
+            out.append(full(logits).numpy())
+        for i, tok in enumerate(inputs["decode"]):
+            logits, cache = model.decode_step(params, cache, put(tok),
+                                              inputs["pos0"] + i)
+            out.append(full(logits).numpy())
+    return out, cache
+
+
+def serve_case(mesh, fsdp_names=(MISTRAL,)) -> dict:
+    """Prefill and decode over placed parameters and caches, for one arch
+    of each family, against the one-device run from the same weights:
+    each step's logits, the largest gap over the largest logit; and
+    whether the placed cache kept its tensors and placements. Archs in
+    ``fsdp_names`` also run with ``fsdp_shard=False``."""
+    import torch
+
+    from repro_torch.distributed import hints
+    from repro_torch.distributed.sharding import (
+        batch_axes,
+        make_cache_specs,
+        make_param_specs,
+        place,
+    )
+    from repro_torch.models.common import plain
+    from repro_torch.models.registry import build
+    from repro_torch.train.layout import full, leaves
+
+    out = {}
+    runs = [(label, cfg, name) for name in SERVE_ARCHS
+            for label, cfg in _serve_configs(name).items()]
+    for label, cfg, name in runs:
+        model = build(cfg)
+        rng = np.random.default_rng(1)
+        b, s = SERVE_BATCH, SERVE_PROMPT
+        inputs = {"tokens": rng.integers(0, cfg.vocab, (b, s)),
+                  "decode": [rng.integers(0, cfg.vocab, (b, 1))
+                             for _ in range(SERVE_STEPS)],
+                  "pos0": s}
+        length = s + SERVE_STEPS
+        if cfg.family == "audio":  # the encoder's frames fill the cache
+            inputs = {"embeds": rng.standard_normal(
+                (b, length, cfg.d_model)).astype(np.float32),
+                "decode": inputs["decode"], "pos0": 0}
+        elif model.prefill is None:  # decode from the empty cache
+            inputs["pos0"] = 0
+        params = model.init(torch.Generator().manual_seed(0), "cpu")
+        want, ref_cache = _serve(model, params,
+                                 model.init_cache(b, length, "cpu"), inputs)
+        for fsdp in (True, False) if name in fsdp_names else (True,):
+            placed = place(plain(params), mesh,
+                           make_param_specs(model, mesh, fsdp_shard=fsdp))
+            cspecs = make_cache_specs(model, mesh, b, length)
+            cache = place(model.init_cache(b, length, "cpu"), mesh, cspecs)
+            before = [(id(t), tuple(t.placements)) for _, t in leaves(cache)]
+            hints.set_axes(batch_axes(mesh), mesh=mesh)
+            try:
+                got, cache = _serve(model, placed, cache, inputs, mesh)
+            finally:
+                hints.clear()
+            after = [(id(t), tuple(t.placements)) for _, t in leaves(cache)]
+            top = max(float(np.abs(w).max()) for w in want)
+            caches = [(full(a).double(), c.double())
+                      for (_, a), (_, c) in zip(leaves(cache),
+                                                leaves(ref_cache))]
+            out[f"{label}/fsdp={fsdp}"] = {
+                "rel": max(float(np.abs(g - w).max()) for g, w in
+                           zip(got, want)) / top,
+                "steps": len(got),
+                "in_place": before == after,
+                "cache_rel": max(float((a - c).abs().max()) /
+                                 max(float(c.abs().max()), 1e-30)
+                                 for a, c in caches if c.numel()),
+            }
+    return out
+
+
+def heads_case(arrays) -> dict:
+    """The head split on ``(1, 4)`` ``("data", "model")``: mistral
+    ``reduced()`` has 4 heads and 2 KV heads, and 2 does not divide 4.
+    One train step from ``repro``'s numpy state, then a prefill and
+    ``SERVE_STEPS`` decode steps from the stepped weights, each against
+    the one-device run."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed import hints
+    from repro_torch.distributed.sharding import (
+        batch_axes,
+        make_cache_specs,
+        make_param_specs,
+        make_state_specs,
+        place,
+    )
+    from repro_torch.models.registry import build
+    from repro_torch.train.layout import full, tree_map
+    from repro_torch.train.train_step import make_train_step
+
+    mesh = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
+    cfg = ARCHS[MISTRAL].reduced()
+    model = build(cfg)
+    step = make_train_step(model, **STEP_KW)
+    ref = port_state(cfg, arrays)
+    placed = place(_copy(ref), mesh, make_state_specs(model, mesh))
+    hints.set_axes(batch_axes(mesh), mesh=mesh)
+    try:
+        placed, m = step(placed, data(cfg, 0))
+    finally:
+        hints.clear()
+    ref, m_ref = step(ref, data(cfg, 0))
+    out = {"loss": [float(m_ref["loss"]), float(m["loss"])],
+           "grad_norm": [float(m_ref["grad_norm"]), float(m["grad_norm"])],
+           "params": _params_apart(ref.params, placed.params,
+                                   [float(m["lr"])])}
+    rng = np.random.default_rng(2)
+    b, s = SERVE_BATCH, SERVE_PROMPT
+    inputs = {"tokens": rng.integers(0, cfg.vocab, (b, s)),
+              "decode": [rng.integers(0, cfg.vocab, (b, 1))
+                         for _ in range(SERVE_STEPS)], "pos0": s}
+    frozen = lambda st: tree_map(lambda t: t.detach(), st.params)
+    want, _ = _serve(model, frozen(ref), model.init_cache(b, s + SERVE_STEPS,
+                                                          "cpu"), inputs)
+    params = place(tree_map(lambda t: full(t).detach(), placed.params), mesh,
+                   make_param_specs(model, mesh))
+    cache = place(model.init_cache(b, s + SERVE_STEPS, "cpu"), mesh,
+                  make_cache_specs(model, mesh, b, s + SERVE_STEPS))
+    hints.set_axes(batch_axes(mesh), mesh=mesh)
+    try:
+        got, _ = _serve(model, params, cache, inputs, mesh)
+    finally:
+        hints.clear()
+    top = max(float(np.abs(w).max()) for w in want)
+    out["serve_rel"] = max(float(np.abs(g - w).max())
+                           for g, w in zip(got, want)) / top
+    out["steps"] = len(got)
+    return out
+
+
+def micro_case(mesh, arrays) -> dict:
+    """mistral ``reduced()`` with as many microbatches as the batch has
+    rows (8): a data shard holds fewer rows than there are microbatches,
+    so each microbatch is a run of the global batch's rows. One step
+    against the one-device step from the same numpy state."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed import hints
+    from repro_torch.distributed.sharding import (
+        batch_axes,
+        make_state_specs,
+        place,
+    )
+    from repro_torch.models.registry import build
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = dataclasses.replace(ARCHS[MISTRAL].reduced(), num_microbatches=BATCH)
+    model = build(cfg)
+    step = make_train_step(model, **STEP_KW)
+    ref = port_state(cfg, arrays)
+    placed = place(_copy(ref), mesh, make_state_specs(model, mesh))
+    hints.set_axes(batch_axes(mesh), mesh=mesh)
+    try:
+        placed, m = step(placed, data(cfg, 0))
+    finally:
+        hints.clear()
+    ref, m_ref = step(ref, data(cfg, 0))
+    return {"loss": [float(m_ref["loss"]), float(m["loss"])],
+            "grad_norm": [float(m_ref["grad_norm"]), float(m["grad_norm"])],
+            "params": _params_apart(ref.params, placed.params,
+                                    [float(m["lr"])])}
+
+
+def moe_grads_case(mesh) -> dict:
+    """kimi-k2 ``reduced()`` (one microbatch) on ``(2, 2)``: the loss and
+    each parameter's gradient of the dense MoE placed (its routing and
+    capacity global, tokens dropped) and of ``moe_impl="ep"`` (nothing
+    dropped), each against one device from the same state: the dense
+    model's loss on the whole batch, and for ``ep`` the mean of its loss
+    on each data shard's rows (``ep``'s aux loss is each batch shard's,
+    averaged). Per leaf, the largest gap over the largest value."""
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed import hints
+    from repro_torch.distributed.sharding import (
+        batch_axes,
+        make_state_specs,
+        place,
+        place_batch,
+    )
+    from repro_torch.models.registry import build
+    from repro_torch.train.layout import full, leaves
+    from repro_torch.train.train_step import init_state
+
+    def grads(model, params, batches, placed):
+        flat = [t for _, t in leaves(params)]
+        with hints.replicated_plain(on=placed), torch.enable_grad():
+            loss = sum(model.loss_fn(params, b) for b in batches) / len(batches)
+            gs = torch.autograd.grad(loss, flat, allow_unused=True)
+        names = [str(k) for k, _ in leaves(params)]
+        return float(full(loss)), {n: full(g).double() for n, g in
+                                   zip(names, gs) if g is not None}
+
+    base = dataclasses.replace(ARCHS[KIMI].reduced(), num_microbatches=1)
+    out = {}
+    for impl, cf in (("dense", base.capacity_factor), ("ep", 100.0)):
+        cfg = dataclasses.replace(base, moe_impl=impl, capacity_factor=cf)
+        model = build(cfg)
+        state = init_state(model, torch.Generator().manual_seed(3), device="cpu")
+        batch = {k: torch.as_tensor(v).long() for k, v in
+                 data(cfg, 0).items()}
+        halves = ([batch] if impl == "dense" else
+                  [{k: v[i * BATCH // 2:(i + 1) * BATCH // 2]
+                    for k, v in batch.items()} for i in range(2)])
+        want_loss, want = grads(model, state.params, halves, False)
+        placed = place(_copy(state), mesh, make_state_specs(model, mesh))
+        hints.set_axes(batch_axes(mesh), mesh=mesh)
+        try:
+            got_loss, got = grads(model, placed.params,
+                                  [place_batch(batch, mesh)], True)
+        finally:
+            hints.clear()
+        rel = {n: float((got[n] - w).abs().max() / w.abs().max())
+               for n, w in want.items() if float(w.abs().max()) > 0}
+        out[impl] = {"loss": [want_loss, got_loss], "leaves": len(want),
+                     "same_leaves": sorted(got) == sorted(want),
+                     "worst": max(rel.values()),
+                     "router": max(v for n, v in rel.items() if "router" in n)}
+    return out
+
+
 def main() -> None:
     import torch
     import torch.distributed as dist
@@ -336,10 +606,14 @@ def main() -> None:
     mesh = make_local_mesh(2)
     out = {"train": train_case(mesh, arrays), "ep": ep_case(mesh)}
     if world == 4:
+        out["heads"] = heads_case(arrays)
+        out["micro"] = micro_case(mesh, arrays)
+        out["moe_grads"] = moe_grads_case(mesh)
         out["anchors"] = anchors_case(mesh)
         out["multipod"] = multipod_case(rank)
         out["elastic"] = elastic_case(mesh, arrays)
     else:
+        out["serve"] = serve_case(mesh)
         out["cli"] = cli_case(out_dir, rank)
     print("RESULT " + json.dumps(out), flush=True)
     dist.destroy_process_group()

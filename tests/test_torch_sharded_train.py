@@ -18,7 +18,18 @@ both started at once:
 * the expert-parallel MoE (kimi-k2 ``reduced()``, nothing dropped) against
   the dense ``moe`` on one device, logits within 1e-5 of their largest;
 * the activation anchors' placements, and ``launch.train
-  --model-parallel 2`` with a supervised restart.
+  --model-parallel 2`` with a supervised restart;
+* the head split where the heads do not divide ``"model"`` (mistral on
+  ``(1, 4)`` in the world of 4): a train step, a prefill and decode steps
+  within 1e-5 of one device;
+* microbatches finer than a data shard's rows (world 4): the step
+  within 1e-5 of one device;
+* the MoE's gradients on placed state (kimi-k2 ``reduced()`` on
+  ``(2, 2)``): the dense MoE and ``moe_impl="ep"``, loss and every
+  parameter's gradient within 1e-5 of one device;
+* serving on placed state (world 2): prefill and decode over placed
+  parameters and caches for one arch of each family, logits within 1e-5
+  of their largest against one device.
 """
 import json
 import math
@@ -229,3 +240,62 @@ def test_launch_train_model_parallel(spawned):
         assert res["restart"]["restarts"]
         assert res["restart"]["losses"][-1] == got[-1]
         assert "needs a world size of 256 ranks, got 2" in res["production"]
+
+
+def test_head_split_on_an_undivided_model_axis(spawned):
+    """Heads that do not divide ``"model"`` (mistral ``reduced()``'s 2 KV
+    heads on ``(1, 4)``): the projection is replicated before the head
+    reshape, so one train step, a prefill and the decode steps run and
+    stay within 1e-5 of one device."""
+    for rank in spawned[4]:
+        res = rank["heads"]
+        for want, got in (res["loss"], res["grad_norm"]):
+            assert _rel(want, got) <= RTOL, res
+        assert res["params"]["far"] <= FLIP_SHARE * res["params"]["n"], res
+        assert res["params"]["worst"] <= res["params"]["bound"], res
+        assert res["steps"] == 1 + cases.SERVE_STEPS
+        assert res["serve_rel"] <= RTOL, res
+
+
+def test_microbatches_finer_than_a_data_shard(spawned):
+    """8 microbatches of an 8-row batch on ``(2, 2)``: a data shard holds 4
+    rows, so each microbatch is one row of the global batch; the step is
+    the one-device step's within 1e-5."""
+    for rank in spawned[4]:
+        res = rank["micro"]
+        for want, got in (res["loss"], res["grad_norm"]):
+            assert _rel(want, got) <= RTOL, res
+        assert res["params"]["far"] <= FLIP_SHARE * res["params"]["n"], res
+        assert res["params"]["worst"] <= res["params"]["bound"], res
+
+
+@pytest.mark.parametrize("impl", ["dense", "ep"])
+def test_moe_gradients_on_placed_state(spawned, impl):
+    """kimi-k2 ``reduced()`` on ``(2, 2)``: the dense MoE split over the
+    mesh (global routing and capacity, tokens dropped) and ``moe_ep``
+    (nothing dropped; its aux loss each batch shard's, averaged): the
+    loss and every parameter's gradient within 1e-5 of the largest
+    against one device. The router's gradient holds the aux loss's once
+    (a mean over ranks hands each rank ``1/n`` of its gradient)."""
+    for rank in spawned[4]:
+        res = rank["moe_grads"][impl]
+        assert _rel(*res["loss"]) <= RTOL, res
+        assert res["same_leaves"] and res["leaves"] > 0, res
+        assert res["worst"] <= RTOL, res
+        assert res["router"] <= RTOL, res
+
+
+@pytest.mark.parametrize("name", cases.SERVE_ARCHS)
+def test_serving_on_placed_state(spawned, name):
+    """Prefill (``forward`` for recurrentgemma, the encoder for whisper)
+    and decode steps over parameters and caches placed on ``(1, 2)``:
+    logits within 1e-5 of their largest against one device, the cache
+    written in place in its placement and equal to one device's."""
+    runs = {k: v for k, v in spawned[2][0]["serve"].items()
+            if k.startswith(name + "/")}
+    assert runs
+    for key, res in runs.items():
+        assert res["rel"] <= RTOL, (key, res)
+        assert res["cache_rel"] <= RTOL, (key, res)
+        assert res["in_place"], key
+        assert res["steps"] >= cases.SERVE_STEPS
