@@ -32,6 +32,20 @@ Drives ``repro_torch`` (never JAX, never ``repro``) on ``cuda:0``:
      then repeatability: ``window_stats`` and kernels B and A run again on
      the same inputs must give the same bits (a 1-D ``torch.cumsum``, which
      ``window_stats`` does not use on the card, is shown beside them);
+     then the wide row ("phase 3 wide", bands past 1024 columns:
+     ``WIDE_BANDS``, l = 2048 at ratio 0.5, l = 8192 at 0.1 and l = 16,384
+     at 0.5, over the first best-first lanes of each band's own cascade on
+     an N = 200,000 ECG reference, 512 lanes at the first two and 256 at
+     the third, whose first 16 are held to the plain versions): A and D (a
+     round under each query's median ``ub``, with counters; D also on full
+     rows, n != m = 2048), C and E (the cold sweep), ``use_cb`` on and
+     off, against their plain versions within ``TOL_WIDE``, C's
+     ``best_start`` the plain sweep's; and the one-warp row at its widest
+     ("phase 3 long row", l = 4096, bw = 832, CPT = 32), A and C against
+     their plain versions. Kernels C and E over the whole order, the wide
+     row and the long row run after phase 4, beside phase 10's subprocess
+     arms and phase 5's CPU halves, so their plain versions' times are
+     taken there (the whole-order plain sweeps are bound on the card);
   4. the main path end to end: ``multi_query_search`` at the
      ``SearchConfig`` defaults (ECG, N = 1,000,000, l = 1024, w = 102,
      Q = 8, batch = 256, ``eapruned``), once with host rounds and once with
@@ -107,7 +121,12 @@ Drives ``repro_torch`` (never JAX, never ``repro``) on ``cuda:0``:
      ``resilient_search`` in ``RES_RANGES`` ranges over a
      ``ShardedExecutor`` of the group of one: coverage 1, one program for
      every range, B once a range, A the ranges' rounds, the offline
-     winners or a near tie;
+     winners or a near tie. Then the wide search ("phase 4 wide",
+     ``WIDE_SEARCH``: N = 200,000, l = 2048, w = 1024, Q = 8) under host
+     rounds and the persistent sweep, launches counted from 0: the same
+     ``best_start``, A and B (host) and C and B (sweep) launched, each
+     winner a nearest window in float64 up to ``TOL_A`` among the first
+     ``WIDE_CANDIDATES`` windows of its best-first order;
   5. the same search at N = 50,000, l = 256, w = 25, Q = 4 on the card and
      with ``device="cpu"``, for both drivers and both EA variants; then a
      stream on the card against the CPU (N = 20,000, l = 1024, w = 102,
@@ -125,13 +144,22 @@ Drives ``repro_torch`` (never JAX, never ``repro``) on ``cuda:0``:
      the runs of one DP the same ``best_start``, rows and cells in the
      order ``eapruned <= pruned <= full``; and ``full`` and
      ``pruned`` on the card against the CPU at N = 20,000, l = 256, w = 25;
+     and the wide search ("phase 5 wide cross-check", l = 2048, ratio 0.5,
+     N = 2,200, 2 queries) under both drivers on the card against host
+     rounds on the CPU: the same ``best_start``, distances within
+     ``TOL_WIDE``. The CPU halves of the three card-against-CPU checks
+     (the searches, the stream and the wide search) run in a subprocess
+     (``cpu_ref_worker``, ``CPU_REF_THREADS`` threads) beside phase 10's
+     arms; the card halves and the comparisons run once it has ended;
   6. per-kernel times with CUDA events beside the plain versions' times and
      the bounds (C and E: the whole cold sweep of phase 3), kernel B's share
      of its bound, time per term and registers, kernel A's time per DP
      row, the counter variants of A and D (``info_ms``), each DTW kernel's
      share of its bound, the lanes C and E keep in
      flight and run per query, and the host-rounds wall per round less
-     kernel A's time;
+     kernel A's time; then A, D (a round), C and E (the cold sweep) on the
+     wide row at the phase-3 bands ("phase 6 wide"), beside their plain
+     versions' times and their bounds;
   7. LM serving ("phase 7 lm serve"), which launches none of the five
      kernels (the launch counts are set to 0 before each arm and read
      after it): (a) Llama-3.2-3B at full width (28 layers, d 3072, 24 / 8
@@ -203,9 +231,10 @@ Drives ``repro_torch`` (never JAX, never ``repro``) on ``cuda:0``:
  10. the dry-run ("phase 10 dryrun", ``launch.dryrun`` on torch's
      ``fake`` backend; its arms (a), (b) and (c)'s trace run as
      subprocesses, one thread each, since a fake world cannot share a
-     process with phase 9's NCCL group, beside phase 5's card-against-CPU
-     cross-check and stream cross-check, which time nothing, and the
-     script waits for them before phase 5's baselines): (a)
+     process with phase 9's NCCL group, started after phase 4 beside
+     phase 5's CPU halves and the phase-3 checks that time nothing but
+     their plain versions, and the script waits for them before phase 5's
+     comparisons): (a)
      Llama-3.2-3B's four shapes on the ``(16, 16)`` production mesh over
      a ``"cuda"`` mesh of the fake group, long_500k skipped, each cell's
      per-device FLOPs, bytes, collectives by kind and trace seconds
@@ -406,6 +435,35 @@ B_SWEEP_Q = (1, 3, 8, 13)
 B_SWEEP_L = (48, 1000, 1024)
 B_SWEEP_SCALE = 1e15
 
+# Bands past one warp (the wide row, csrc/dtw_band_wide.cuh) and long
+# rows: phase 3 holds kernels A, C, D and E against their plain versions on
+# the first K best-first lanes (the cascade of each band's search) of Q
+# queries over an ECG reference of WIDE_REF_N samples, at each (l, window
+# ratio, Q, K, Kc) of WIDE_BANDS: bw = 2048 (the paper's upper ratio), 1664
+# (its default ratio at l = 8192) and 16,384 (8 segments of the wide row,
+# 64 KB of shared memory a block), Q * K lanes (a block each) to fill the
+# card's 132 SMs for a round, the first Kc of each query's held to the
+# plain versions (a plain DP row at l = 16,384 is ~16k rows of PyTorch
+# launches whatever the lanes); kernel D also on full rows, queries of
+# WIDE_FULL_N samples against the first band's windows (n != m, bw = m).
+# LONG_ROW is the one-warp row at CPT = 32 (l = 4096, bw = 832) for A and
+# C. Phase 4 runs the search WIDE_SEARCH (N = WIDE_REF_N, cut from the
+# main path's 1e6 for time) under both drivers and holds each winner, in
+# float64, against the first WIDE_CANDIDATES windows of its query's
+# best-first order; phase 5 runs it on the card and the CPU at
+# WIDE_CROSS_N samples and WIDE_CROSS_Q queries; phase 6 times the
+# kernels at the phase-3 shapes.
+WIDE_REF_N = 200_000
+WIDE_BANDS = ((2048, 0.5, 8, 64, 64), (8192, 0.1, 8, 64, 64),
+              (16_384, 0.5, 2, 128, 8))
+WIDE_FULL_N = 2000
+LONG_ROW = (4096, 0.1, 8, 64)
+WIDE_SEARCH = dict(ref_len=WIDE_REF_N, query_len=2048, window_ratio=0.5,
+                   n_queries=8)
+WIDE_CANDIDATES = 512
+WIDE_CROSS_N = 2200
+WIDE_CROSS_Q = 2
+
 # Tolerances, each with its reason.
 # Kernel B: a window's LB_Keogh sums l = 1024 terms; the kernel adds them in
 # order with FMAs, the plain version by torch's tree reduction: O(l) ulp at
@@ -425,13 +483,35 @@ TOL_A = 1e-3
 # distance carries the same rounding of P (1e-3 relative); the winner's
 # start must be equal.
 # Card against CPU: each side computes its own float32 prefix-sum window
-# stats, which round differently (about 1e-5 relative at N = 5e4): 1e-4
+# stats, which round differently (about 1e-5 relative at N = 5e4, less at
+# the 2e4 of CROSS): 1e-4
 # relative on distances; best_start and quarantine counts exactly.
 TOL_CROSS = 1e-4
 # Oracle recheck of the winners: the per-lane-offset banded DP of
 # core.ea_pruned_dtw against the round kernel, same stats; its band starts
 # elsewhere, so P rounds differently as for TOL_A: 1e-3 relative.
 TOL_ORACLE = 1e-3
+# Rows past the main path's (WIDE_BANDS, LONG_ROW): the kernels add P in
+# Sklansky order over the padded band (the wide row: over each segment of
+# 2048 columns, then the previous segment's last P), the plain version's
+# torch.cumsum on the card in chained chunks whose width depends on how
+# many rows it scans (1024 columns only past 2^20 rows), so the two round P
+# differently on every row, and P grows with the band: measured 4.9e-4 at
+# l = 2048 (bw = 2048), 2.0e-4 at l = 8192 (bw = 1664), 5.4e-4 at
+# l = 16,384 (bw = 16,384), 3.6e-4 on full rows (m = 2048) and 1.2e-4 on
+# the one-warp row at l = 4096 (an H100 80GB HBM3 at 700 W), the card
+# against the CPU 1.5e-4 at l = 2048; the run prints its own. TOL_WIDE is
+# ~3.7x the largest; TOL_A is not widened.
+TOL_WIDE = 2e-3
+# The counters of the wide row against the plain version: a cell within
+# rounding of its row's threshold moves next_start, and with it the cells
+# of later rows; where a lane's least cell hovers within rounding of the
+# threshold for a few rows, its abandon moves by as many (measured at
+# l = 2048: 14 of 512 lanes, by up to 4 rows, 3 rows in all; cells 1.2e-4
+# relative where the rows agree; the H100 run above). The sums of rows and
+# of cells within TOL_WIDE_CELLS relative, and each lane's cells where its
+# rows agree (the run prints how many lanes' rows differ, and by how much).
+TOL_WIDE_CELLS = 1e-2
 
 # LM serving (phase 7). bfloat16 keeps 8 significant bits (a step of
 # 2^-8 = 0.4% of a value). The decode, the teacher-forced forward and the
@@ -505,7 +585,8 @@ PEAK_BF16 = 989e12
 # phase runs beside them. Arm (d) runs as one in phase 10.
 DRY_ARCH = "llama3.2-3b"               # (a): its four shapes on (16, 16)
 DRY_MOE = ("kimi-k2-1t-a32b", "train_4k")  # (b), under --opt
-DRY_WAIT = 600                         # s from the arms' start, their deadline
+DRY_WAIT = 700                         # s from the arms' start, their deadline
+CPU_REF_THREADS = 3                    # phase 5's CPU halves, beside the arms
 DRY_PLACED_STEPS = 8                   # (e): decode steps over placed state
 PERF_MD_TRAIN_BOUND_MS = 95.42         # PERF.md section 5: phase 8 (a)'s bound
 
@@ -568,21 +649,21 @@ def phase_card(torch) -> dict:
     return {"kind": name, "count": torch.cuda.device_count(), "smi": smi}
 
 
-def registers(name: str, kernel: str, key) -> dict[str, int] | None:
-    """Registers a thread of each instantiation ``kernel<A, B>`` (two
-    template arguments, an int and a bool) in library ``name``, from
-    ``ptxas -v``'s log, keyed by ``key(A, B)``; ``None`` when this process
-    did not build it."""
+def registers(name: str, kernel: str, key,
+              args: str = r"ILi(\d+)ELb([01])E") -> dict[str, int] | None:
+    """Registers a thread of each instantiation of ``kernel`` in library
+    ``name``, from ``ptxas -v``'s log, keyed by ``key`` of its template
+    arguments as mangled (``args``: by default an int and a bool,
+    ``kernel<A, B>``); ``None`` when this process did not build it."""
     from repro_torch.kernels import _build
 
     if name not in _build.build_log:
         return None
     regs, inst = {}, None
     for ln in _build.build_log[name][1].splitlines():
-        m = re.search(rf"Compiling entry function '.*{kernel}ILi(\d+)ELb([01])E",
-                      ln)
+        m = re.search(rf"Compiling entry function '.*{kernel}{args}", ln)
         if m:
-            inst = key(m.group(1), m.group(2) == "1")
+            inst = key(*m.groups())
         m = re.search(r"Used (\d+) registers", ln)
         if m and inst is not None:
             regs[inst] = int(m.group(1))
@@ -594,14 +675,16 @@ def lb_registers() -> dict[str, int] | None:
     """Kernel B's registers a thread for each query tile (and the one-query
     tile that reads its span from global memory)."""
     return registers("lb_keogh", "lb_cascade_kernel",
-                     lambda qt, span: qt + ("" if span else ", span global"))
+                     lambda qt, span: qt + ("" if span == "1" else
+                                            ", span global"))
 
 
 def round_registers(name: str, kernel: str) -> dict[str, int] | None:
     """A round kernel's registers a thread for each instantiation, as
     ``"CPT=<c>"`` (counter-free) or ``"CPT=<c> info"`` (counters)."""
     return registers(name, kernel,
-                     lambda cpt, info: f"CPT={cpt}" + (" info" if info else ""))
+                     lambda cpt, info: f"CPT={cpt}" +
+                     (" info" if info == "1" else ""))
 
 
 def phase_build() -> None:
@@ -619,6 +702,14 @@ def phase_build() -> None:
                                 ("D", "dtw_ea_slab", "dtw_ea_slab_kernel")):
         say(f"  kernel {label} registers a thread (ptxas), counter-free and "
             f"with counters: {round_registers(name, kernel)}")
+    # the wide row's kernels have one bool: counters (A, D) or fused (C/E)
+    for name, kernel, names in (
+            ("dtw_ea_fused", "dtw_ea_fused_wide_kernel", ("A", "A info")),
+            ("dtw_ea_slab", "dtw_ea_slab_wide_kernel", ("D", "D info")),
+            ("dtw_ea_persistent", "persistent_sweep_wide", ("E", "C"))):
+        regs = registers(name, kernel, lambda b, n=names: n[b == "1"],
+                         args=r"ILb([01])E")
+        say(f"  wide row registers a thread (ptxas): {regs}")
 
 
 def main_path_inputs(torch, cfg, dev):
@@ -740,15 +831,15 @@ def round_inputs(torch, plan, state, order, lb_sorted, r):
     return starts, ub, lbs
 
 
-def compare_lanes(torch, k, p, ub, label: str):
+def compare_lanes(torch, k, p, ub, label: str, tol: float = TOL_A):
     """Hold a round kernel's ``(Q, K)`` distances ``k`` against the plain
-    version's ``p``: equal abandon masks except for lanes within ``TOL_A``
-    of their ``ub``, and ``TOL_A`` relative where both finish. Returns the
+    version's ``p``: equal abandon masks except for lanes within ``tol``
+    of their ``ub``, and ``tol`` relative where both finish. Returns the
     largest absolute difference and the mask of those near-ub lanes."""
     fk, fp = torch.isfinite(k), torch.isfinite(p)
     near_ub = torch.zeros_like(fk)
     for d, f in ((k, fk), (p, fp)):
-        near_ub |= f & ((d - ub).abs() <= TOL_A * ub.abs().clamp_min(1.0))
+        near_ub |= f & ((d - ub).abs() <= tol * ub.abs().clamp_min(1.0))
     mismatched = (fk != fp) & ~near_ub
     both = fk & fp
     abs_err = float((k[both] - p[both]).abs().max()) if both.any() else 0.0
@@ -756,10 +847,10 @@ def compare_lanes(torch, k, p, ub, label: str):
     say(f"  {label}: {int(fk.sum())}/{fk.numel()} lanes finish "
         f"(plain {int(fp.sum())}), masks differ on "
         f"{int((fk != fp).sum())} lanes ({int(near_ub.sum())} near ub), "
-        f"max abs err {abs_err:.3e}, max rel err {rel:.3e} (tol {TOL_A})")
+        f"max abs err {abs_err:.3e}, max rel err {rel:.3e} (tol {tol})")
     check(int(mismatched.sum()) == 0, f"{label}: abandon masks differ away "
           "from ub")
-    check(rel <= TOL_A, f"{label}: rel err {rel} > {TOL_A}")
+    check(rel <= tol, f"{label}: rel err {rel} > {tol}")
     return abs_err, near_ub
 
 
@@ -896,19 +987,19 @@ def phase_kernel_d(torch, prep, pq, plan, ka) -> dict:
     return {"rounds": rounds, "max_abs_err": worst_abs}
 
 
-def _ce_check(torch, c, p, label: str, *, start_only: bool = False) -> float:
+def _ce_check(torch, c, p, label: str, tol: float = TOL_A) -> float:
     """Hold a persistent kernel's ``(best_dist, best_start, blocks)`` ``c``
     against its plain version's ``p``: the same starts, distances within
-    ``TOL_A`` relative; ``blocks`` is printed. Returns the largest absolute
+    ``tol`` relative; ``blocks`` is printed. Returns the largest absolute
     distance difference."""
     abs_err = float((c[0] - p[0]).abs().max())
     rel = rel_err(c[0], p[0])
     say(f"  {label}: best_start {c[1].tolist()} (plain {p[1].tolist()}), "
         f"best_dist max abs err {abs_err:.3e}, max rel err {rel:.3e} "
-        f"(tol {TOL_A}); blocks {c[2].tolist()} (plain {p[2].tolist()})")
+        f"(tol {tol}); blocks {c[2].tolist()} (plain {p[2].tolist()})")
     check(c[1].tolist() == p[1].tolist(),
           f"{label}: best_start differs from the plain version")
-    check(rel <= TOL_A, f"{label}: best_dist rel err {rel} > {TOL_A}")
+    check(rel <= tol, f"{label}: best_dist rel err {rel} > {tol}")
     return abs_err
 
 
@@ -1120,6 +1211,485 @@ def phase_repeat(torch, prep, plan, kb, ka, reps: int = 3) -> None:
     check(n_b == 0, "kernel B is not repeatable")
     check(n_a == 0, "kernel A is not repeatable")
 
+
+def wide_lanes(torch, ref, length: int, ratio: float, nq: int, k: int):
+    """The first ``k`` best-first lanes of ``nq`` queries of ``length`` at
+    window ``ratio`` over ``ref``, from the cascade of that search's plan:
+    ``(plan, prepared queries, kernel C's lane inputs)``, the inputs being
+    the queries, the sanitized reference, the sorted bounds, int32 starts,
+    the lanes' means and clamped sigmas."""
+    from repro_torch.configs.dtw_search import SearchConfig
+    from repro_torch.core.common import clamp_sigma
+    from repro_torch.data.synthetic import make_queries
+    from repro_torch.search.pipeline import (
+        cascade,
+        prepare_queries,
+        prepare_ref,
+    )
+
+    plan = SearchConfig(ref_len=ref.shape[0], query_len=length,
+                        window_ratio=ratio, n_queries=nq).make_plan()
+    prep = prepare_ref(plan, ref)
+    queries = torch.as_tensor(make_queries(DATASET, nq, length, seed=1),
+                              dtype=torch.float32, device=DEVICE)
+    pq = prepare_queries(plan, queries)
+    order, lb = cascade(plan, prep, pq.qn)
+    starts = order[:, :k]
+    lanes = (pq.qn.contiguous(), prep.ref, lb[:, :k].contiguous(),
+             starts.to(torch.int32).contiguous(), prep.mu[starts].contiguous(),
+             clamp_sigma(prep.sigma[starts]).contiguous())
+    return plan, pq, lanes
+
+
+def median_ub(torch, free):
+    """A per-lane bound from a round's free distances: each query's median
+    (abandoned lanes as ``BIG``), so about half its lanes abandon."""
+    from repro_torch.core.common import BIG
+
+    d = torch.where(torch.isfinite(free), free, BIG)
+    return d.median(dim=1, keepdim=True).values.expand_as(d).contiguous()
+
+
+def check_counts_wide(torch, got, want, near_ub, label: str) -> float:
+    """The wide row's counters ``got`` against the plain version's
+    ``want``: their sums within ``TOL_WIDE_CELLS`` relative, and each
+    lane's cells within it where the lane's rows agree (a row's least cell
+    within rounding of its threshold can move the abandon by a few rows;
+    how many lanes and rows is printed). Returns the largest relative
+    difference."""
+    rows_off = (got[0] - want[0]).abs()
+    rows_same = rows_off == 0
+    cells = (got[1] - want[1]).abs().double() / want[1].double().clamp_min(1)
+    worst = float(cells[rows_same].max()) if rows_same.any() else 0.0
+    total = lambda t: int(t.sum(dtype=torch.int64))
+    sums = max(abs(total(g) / max(total(w), 1) - 1)
+               for g, w in zip(got, want))
+    say(f"  {label}: {total(got[0])} rows, {total(got[1])} cells (plain "
+        f"{total(want[0])}, {total(want[1])}: {sums:.3e} apart); rows "
+        f"differ on {int((~rows_same).sum())} lanes "
+        f"({int((~rows_same & near_ub).sum())} near ub), by at most "
+        f"{int(rows_off.max())}; cells equal on "
+        f"{int((got[1] == want[1]).sum())} of {got[1].numel()}, max rel diff "
+        f"where the rows agree {worst:.3e} (tol {TOL_WIDE_CELLS})")
+    check(sums <= TOL_WIDE_CELLS, f"{label}: counters' sums differ by {sums}")
+    check(worst <= TOL_WIDE_CELLS, f"{label}: cells differ by {worst}")
+    return max(worst, sums)
+
+
+def phase_kernels_wide(torch) -> dict:
+    """Kernels A, C, D and E on the wide row against their plain versions
+    on the card, at each band of ``WIDE_BANDS`` with ``use_cb`` on and off.
+
+    A and D: one round over the band's first K best-first lanes, each
+    query's ``ub`` the median of the lanes' free distances (kernel A's
+    under ``ub = BIG``): abandon masks equal but within ``TOL_WIDE`` of
+    ub, distances within ``TOL_WIDE``; their counter variants the
+    counter-free bits, their counters the plain version's
+    (``check_counts_wide``); D on the slab of the same windows (with the
+    host cb slab), A's bits without cb. A's plain version gathers and
+    normalizes the windows and builds the cb slab exactly as D's slab and
+    cb slab are built, so the one plain run is both kernels' plain
+    version; likewise the plain sweep is both C's and E's. C and E: the
+    cold sweep of the same lanes, ``best_start`` the plain sweep's,
+    ``best_dist`` within ``TOL_WIDE``, C equal to E bit for bit. Where a
+    band holds only its first Kc lanes a query to the plain versions, the
+    rounds' lanes are compared there, and C and E sweep those lanes too
+    (held to the plain sweep) beside all K (C equal to E, its answer no
+    worse than the shorter sweep's). D also on
+    full rows: queries of ``WIDE_FULL_N`` samples against the first band's
+    windows (n != m: bw = m), with counters."""
+    from repro_torch.core.common import BIG, DEAD_LANE_UB
+    from repro_torch.core.lower_bounds import cascade_keogh_cumulative
+    from repro_torch.data.synthetic import make_dataset, make_queries
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dtw_band import (
+        dtw_ea_fused_plain,
+        dtw_ea_persistent_fused_plain,
+        dtw_ea_plain,
+        gather_norm_lanes,
+    )
+    from repro_torch.search.znorm import znorm
+
+    ref = torch.as_tensor(make_dataset(DATASET, WIDE_REF_N, seed=0),
+                          dtype=torch.float32, device=DEVICE)
+    worst = {"A": 0.0, "C": 0.0, "D": 0.0, "E": 0.0, "rel": 0.0, "cells": 0.0}
+    bands = []
+    for length, ratio, nq, k, kc in WIDE_BANDS:
+        plan, pq, lanes = wide_lanes(torch, ref, length, ratio, nq, k)
+        qn, sref, lb, s32, mu, sg = lanes
+        w, m, bk = plan.window, plan.length, plan.block_k
+        bw = ops.resolve_band(w, m, m, plan.band_width)
+        layout = ops.band_layout(bw, m, True)
+        check(layout.tier == "shared", f"bw {bw} is not on the wide row")
+        tag = (f"l={m} w={w} bw={bw} ({layout.segments} segment(s) of "
+               f"{ops.WIDE_SEGMENT}) Q={nq} K={k}")
+        if kc < k:
+            tag += f", held to the plain versions on the first {kc}"
+
+        def head(t):  # the lanes held to the plain versions
+            return t[:, :kc].contiguous()
+
+        slab = gather_norm_lanes(sref, s32, mu, sg, m)[0].contiguous()
+        sub = (qn, sref, head(lb), head(s32), head(mu), head(sg))
+        cold = torch.full((nq,), BIG, dtype=torch.float32, device=DEVICE)
+        band = {"length": m, "window": w, "bw": bw, "lanes": nq * k,
+                "plain_lanes": nq * kc, "segments": layout.segments,
+                "tag": tag}
+        for use_cb in (True, False):
+            env = dict(u=pq.u.contiguous(), low=pq.low.contiguous(),
+                       use_cb=use_cb)
+            cbs = (cascade_keogh_cumulative(slab, pq.u[:, None, :],
+                                            pq.low[:, None, :]).contiguous()
+                   if use_cb else None)
+            fargs = (qn, sref, s32, mu, sg)
+            big = torch.full((nq, k), BIG, dtype=torch.float32, device=DEVICE)
+            ub = median_ub(torch, ops.dtw_ea_multi_fused(*fargs, big, w, m,
+                                                         **env))
+            ka = ops.dtw_ea_multi_fused(*fargs, ub, w, m, **env)
+            ki = ops.dtw_ea_multi_fused(*fargs, ub, w, m, with_info=True,
+                                        **env)
+            kd = ops.dtw_ea_multi(qn, slab, ub, w, cb=cbs)
+            kdi = ops.dtw_ea_multi(qn, slab, ub, w, cb=cbs, with_info=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, prow, pcell = dtw_ea_fused_plain(
+                qn, sref, sub[3], sub[4], sub[5], head(ub), w, m, bw,
+                count=True, **env)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            label = f"[3 wide] {tag} use_cb={use_cb}"
+            err, near = compare_lanes(torch, head(ka), p, head(ub),
+                                      f"{label} kernel A", tol=TOL_WIDE)
+            worst["A"] = max(worst["A"], err)
+            fin = torch.isfinite(head(ka)) & torch.isfinite(p)
+            worst["rel"] = max(worst["rel"], rel_err(head(ka)[fin], p[fin]))
+            err, _ = compare_lanes(torch, head(kd), p, head(ub),
+                                   f"{label} kernel D", tol=TOL_WIDE)
+            worst["D"] = max(worst["D"], err)
+            same = torch.equal(ki[0], ka) and torch.equal(kdi[0], kd)
+            say(f"  {label}: the counter variants' distances the "
+                f"counter-free bits (A, D): {same}; plain round "
+                f"{plain_ms:.1f} ms")
+            check(same, f"{label}: a counter variant changes distances")
+            worst["cells"] = max(worst["cells"], check_counts_wide(
+                torch, tuple(head(t) for t in ki[1:]), (prow, pcell), near,
+                f"{label} A counters"))
+            if not use_cb:
+                same = (torch.equal(kd, ka)
+                        and all(torch.equal(x, y)
+                                for x, y in zip(kdi[1:], ki[1:])))
+                say(f"  {label}: kernel D equals kernel A bit for bit, "
+                    f"counters too: {same}")
+                check(same, f"{label}: kernels A and D differ")
+            # C and E: the cold sweep of the same best-first lanes, and of
+            # the first kc of them against the plain sweep.
+            c = ops.dtw_ea_persistent_fused(*lanes, cold, w, m, block_k=bk,
+                                            **env)
+            e = ops.dtw_ea_persistent(qn, slab, lb, s32, cold, w, block_k=bk,
+                                      **env)
+            same = torch.equal(c[0], e[0]) and torch.equal(c[1], e[1])
+            if kc < k:
+                cs = ops.dtw_ea_persistent_fused(*sub, cold, w, m,
+                                                 block_k=bk, **env)
+                es = ops.dtw_ea_persistent(qn, head(slab), sub[2], sub[3],
+                                           cold, w, block_k=bk, **env)
+                better = bool((c[0] <= cs[0] * (1 + TOL_WIDE)).all())
+                say(f"  {label}: the sweep of all {k} lanes a query "
+                    f"best_dist {c[0].tolist()}, of the first {kc} "
+                    f"{cs[0].tolist()}; no worse (within {TOL_WIDE}): "
+                    f"{better}")
+                check(better, f"{label}: more lanes gave a worse answer")
+            else:
+                cs, es = c, e
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pc = dtw_ea_persistent_fused_plain(*sub, cold, w, m, bw, bk,
+                                               **env)[:3]
+            torch.cuda.synchronize()
+            sweep_plain_ms = (time.perf_counter() - t0) * 1e3
+            worst["C"] = max(worst["C"], _ce_check(
+                torch, cs, pc, f"{label} kernel C", tol=TOL_WIDE))
+            worst["E"] = max(worst["E"], _ce_check(
+                torch, es, pc, f"{label} kernel E", tol=TOL_WIDE))
+            same = (same and torch.equal(cs[0], es[0])
+                    and torch.equal(cs[1], es[1]))
+            say(f"  {label}: C equals E bit for bit: {same}; plain sweep "
+                f"{sweep_plain_ms:.1f} ms")
+            check(same, f"{label}: kernels C and E differ")
+            if use_cb:
+                # phase 6's inputs and the plain versions' times; the
+                # round's cells and the sweep's least work (the lanes whose
+                # bound lies below the answer, run against it) from kernel
+                # A's counters, which hold the plain version's above
+                live = lb < c[0][:, None]
+                ub_best = torch.where(live, c[0][:, None].expand_as(lb),
+                                      DEAD_LANE_UB).contiguous()
+                sweep_cells = int(ops.dtw_ea_multi_fused(
+                    *fargs, ub_best, w, m, with_info=True,
+                    **env)[2].sum(dtype=torch.int64))
+                band.update(
+                    fargs=fargs, ub=ub, env=env, slab=slab, cbs=cbs,
+                    lanes_in=lanes, cold=cold, block_k=bk,
+                    round_cells=int(ki[2].sum(dtype=torch.int64)),
+                    sweep_cells=sweep_cells, sweep_lanes=int(live.sum()),
+                    plain_ms=plain_ms, sweep_plain_ms=sweep_plain_ms)
+        bands.append(band)
+    # Kernel D on full rows: n != m, bw = m, on the first band's windows.
+    b0 = bands[0]
+    check(b0["plain_lanes"] == b0["lanes"], "the first band's lanes")
+    m, w = b0["length"], b0["window"]
+    nq = b0["fargs"][0].shape[0]
+    qf = znorm(torch.as_tensor(make_queries(DATASET, nq, WIDE_FULL_N, seed=5),
+                               dtype=torch.float32, device=DEVICE))
+    slab = b0["slab"]
+    big = torch.full(slab.shape[:2], BIG, dtype=torch.float32, device=DEVICE)
+    ub = median_ub(torch, ops.dtw_ea_multi(qf, slab, big, w))
+    kd = ops.dtw_ea_multi(qf, slab, ub, w)
+    kdi = ops.dtw_ea_multi(qf, slab, ub, w, with_info=True)
+    p, prow, pcell = dtw_ea_plain(qf, slab, ub, w, m, count=True)
+    torch.cuda.synchronize()
+    label = f"[3 wide] kernel D full rows n={WIDE_FULL_N} m={m} (bw = m)"
+    err, near = compare_lanes(torch, kd, p, ub, label, tol=TOL_WIDE)
+    worst["D"] = max(worst["D"], err)
+    check(torch.equal(kdi[0], kd), f"{label}: the counter variant differs")
+    worst["cells"] = max(worst["cells"], check_counts_wide(
+        torch, kdi[1:], (prow, pcell), near, f"{label} counters"))
+    return {"bands": bands, "max_abs_err": worst}
+
+
+def phase_long_row(torch) -> dict:
+    """The one-warp row at its widest columns a thread (``LONG_ROW``: l =
+    4096, bw = 832, CPT = 32), kernels A and C against their plain versions
+    on the card, ``use_cb`` as the main path: A over one round of the first
+    K best-first lanes under each query's median ``ub``, C over the cold
+    sweep of the same lanes; the tolerance the run measures is printed and
+    held to ``TOL_WIDE``."""
+    from repro_torch.core.common import BIG
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dtw_band import (
+        dtw_ea_fused_plain,
+        dtw_ea_persistent_fused_plain,
+    )
+
+    length, ratio, nq, k = LONG_ROW
+    ref = torch.as_tensor(make_dataset(DATASET, WIDE_REF_N, seed=0),
+                          dtype=torch.float32, device=DEVICE)
+    plan, pq, lanes = wide_lanes(torch, ref, length, ratio, nq, k)
+    qn, sref, lb, s32, mu, sg = lanes
+    w, m, bk = plan.window, plan.length, plan.block_k
+    bw = ops.resolve_band(w, m, m, plan.band_width)
+    layout = ops.band_layout(bw, m, plan.use_cb)
+    check(layout == (1, 32, 1), f"l={m}: {layout}")
+    env = dict(u=pq.u.contiguous(), low=pq.low.contiguous(),
+               use_cb=plan.use_cb)
+    fargs = (qn, sref, s32, mu, sg)
+    big = torch.full((nq, k), BIG, dtype=torch.float32, device=DEVICE)
+    ub = median_ub(torch, ops.dtw_ea_multi_fused(*fargs, big, w, m, **env))
+    ka = ops.dtw_ea_multi_fused(*fargs, ub, w, m, **env)
+    p = dtw_ea_fused_plain(*fargs, ub, w, m, bw, **env)
+    cold = torch.full((nq,), BIG, dtype=torch.float32, device=DEVICE)
+    c = ops.dtw_ea_persistent_fused(*lanes, cold, w, m, block_k=bk, **env)
+    pc = dtw_ea_persistent_fused_plain(*lanes, cold, w, m, bw, bk, **env)[:3]
+    torch.cuda.synchronize()
+    label = (f"[3 long row] l={m} w={w} bw={bw} CPT=32 Q={nq} K={k} "
+             f"use_cb={plan.use_cb}")
+    a_err, _ = compare_lanes(torch, ka, p, ub, f"{label} kernel A",
+                             tol=TOL_WIDE)
+    c_err = _ce_check(torch, c, pc, f"{label} kernel C", tol=TOL_WIDE)
+    fin = torch.isfinite(ka) & torch.isfinite(p)
+    return {"A": a_err, "C": c_err, "rel_A": rel_err(ka[fin], p[fin]),
+            "rel_C": rel_err(c[0], pc[0])}
+
+
+def phase_wide_search(torch) -> dict:
+    """``multi_query_search`` at ``WIDE_SEARCH`` (l = 2048, ratio 0.5: the
+    wide row) under host rounds and the persistent sweep, each with every
+    kernel's launch count set to 0 just before and read just after: the
+    same ``best_start``, distances within ``TOL_WIDE`` of each other, host
+    rounds launching A and B, the sweep C once, B once and A never. Each
+    winner is held in float64 (windows and query normalized in float64,
+    ``core.dtw``) against the first ``WIDE_CANDIDATES`` windows of its
+    query's best-first order, which hold every window whose bound lies
+    below the winner when there are fewer: its DTW within ``TOL_A`` of
+    their minimum, and its ``best_dist`` within ``TOL_A`` of its own."""
+    import numpy as np
+
+    from repro_torch.configs.dtw_search import SearchConfig
+    from repro_torch.core.common import EPS
+    from repro_torch.core.dtw import dtw_batch
+    from repro_torch.kernels import ops
+    from repro_torch.search.pipeline import (
+        cascade,
+        prepare_queries,
+        prepare_ref,
+    )
+
+    cfg = SearchConfig(**WIDE_SEARCH)
+    ref, queries = main_path_inputs(torch, cfg, DEVICE)
+    out = {}
+    for rounds in ("host", "persistent"):
+        res, wall, launches = counted_search(torch, ref, queries, cfg,
+                                             rounds=rounds)
+        say(f"[4 wide] multi_query_search N={cfg.ref_len} l={cfg.query_len} "
+            f"w={cfg.window} Q={cfg.n_queries} batch={cfg.batch} "
+            f"rounds={rounds}: {wall:.3f} s wall; rounds "
+            f"{res.rounds.tolist()} lanes {res.lanes.tolist()}; launches "
+            f"{launches}")
+        say(f"  best_start {res.best_start.tolist()}")
+        say(f"  best_dist {res.best_dist.tolist()}")
+        out[rounds] = {"res": res, "wall_s": wall, "launches": launches}
+    h, p = out["host"]["res"], out["persistent"]["res"]
+    lh, lp = out["host"]["launches"], out["persistent"]["launches"]
+    check(lh["dtw_ea_multi_fused"] > 0 and lh["lb_keogh_all_windows"] > 0,
+          "wide host rounds: kernel A or B was not launched")
+    tiles = len(ops.lb_query_tiles(cfg.n_queries, cfg.query_len))
+    check(lp["dtw_ea_persistent_fused"] == 1
+          and lp["lb_keogh_all_windows"] == tiles
+          and lp["dtw_ea_multi_fused"] == 0,
+          f"wide persistent search must launch C once, B once a query tile "
+          f"({tiles}) and A never")
+    rel = rel_err(p.best_dist, h.best_dist)
+    say(f"  persistent against host rounds: best_start equal "
+        f"{p.best_start.tolist() == h.best_start.tolist()}, best_dist max "
+        f"rel err {rel:.3e} (tol {TOL_WIDE})")
+    check(p.best_start.tolist() == h.best_start.tolist(),
+          "wide search: the two drivers found other windows")
+    check(rel <= TOL_WIDE, "wide search: the two drivers' distances differ")
+
+    plan = cfg.make_plan()
+    prep = prepare_ref(plan, ref)
+    pq = prepare_queries(plan, queries)
+    order, lb = cascade(plan, prep, pq.qn)
+    length = cfg.query_len
+    r64 = ref.to(torch.float64)
+    for qi in range(cfg.n_queries):
+        s = int(h.best_start[qi])
+        below = int((lb[qi] < h.best_dist[qi]).sum())
+        cand = torch.cat([order[qi, :WIDE_CANDIDATES],
+                          torch.tensor([s], device=DEVICE)])
+        wins = r64.unfold(0, length, 1)[cand]
+        wins = (wins - wins.mean(1, keepdim=True)) / wins.std(
+            1, keepdim=True, correction=0).clamp_min(EPS)
+        q = queries[qi].to(torch.float64)
+        q = (q - q.mean()) / q.std(correction=0).clamp_min(EPS)
+        d = dtw_batch(q.expand(wins.shape[0], -1), wins, window=cfg.window)
+        dmin, dwin = float(d.min()), float(d[-1])
+        gap = dwin / dmin - 1
+        off = abs(float(h.best_dist[qi]) / dwin - 1)
+        say(f"  query {qi}: window {s}, float64 DTW {dwin!r}, {gap:.3e} "
+            f"above the least of {wins.shape[0] - 1} best-first candidates "
+            f"({below} windows bound below it); best_dist {off:.3e} off "
+            f"(tol {TOL_A} each)")
+        check(gap <= TOL_A and off <= TOL_A,
+              f"wide search query {qi}: not a nearest window")
+    return {"host": out["host"], "persistent": out["persistent"],
+            "cfg": cfg}
+
+
+def wide_cross_run(dev: str, rounds: str) -> dict:
+    """The wide search (``WIDE_SEARCH``'s l and ratio) over a reference cut
+    to ``WIDE_CROSS_N`` samples with ``WIDE_CROSS_Q`` queries, on ``dev``
+    under ``rounds``."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import make_dataset, make_queries
+    from repro_torch.search import multi_query_search
+
+    length = WIDE_SEARCH["query_len"]
+    window = int(length * WIDE_SEARCH["window_ratio"])
+    ref = make_dataset(DATASET, WIDE_CROSS_N, seed=0).astype(np.float32)
+    qs = make_queries(DATASET, WIDE_CROSS_Q, length, seed=1)
+    qs = qs.astype(np.float32)
+    t0 = time.perf_counter()
+    return search_result(multi_query_search(ref, qs, length, window,
+                                            rounds=rounds, device=dev), t0)
+
+
+def phase_wide_cross(torch, cpu: dict) -> None:
+    """``wide_cross_run`` on the card under both drivers against host
+    rounds on the CPU (``cpu``, from ``cpu_ref_worker``): ``best_start``
+    equal, distances within ``TOL_WIDE`` (each side its own float32 window
+    stats, and P's order as for ``TOL_WIDE``)."""
+    length = WIDE_SEARCH["query_len"]
+    window = int(length * WIDE_SEARCH["window_ratio"])
+    out = {(DEVICE, r): wide_cross_run(DEVICE, r)
+           for r in ("host", "persistent")}
+    out["cpu", "host"] = cpu
+    for (dev, rounds), r in out.items():
+        say(f"[5 wide cross-check] N={WIDE_CROSS_N} l={length} w={window} "
+            f"Q={WIDE_CROSS_Q} {rounds} {dev}: {r['s']:.2f} s, best_start "
+            f"{r['best_start']}, best_dist {r['best_dist']}")
+    h = out["cpu", "host"]
+    for rounds in ("host", "persistent"):
+        g = out[DEVICE, rounds]
+        rel = rel_err(torch.tensor(g["best_dist"]),
+                      torch.tensor(h["best_dist"]))
+        same = g["best_start"] == h["best_start"]
+        say(f"  {rounds} card against host cpu: best_start equal {same}, "
+            f"best_dist max rel err {rel:.3e} (tol {TOL_WIDE})")
+        check(same, f"wide {rounds}: best_start differs between card and "
+              "CPU")
+        check(rel <= TOL_WIDE, f"wide {rounds}: distances differ")
+
+
+def phase_times_wide(torch, kw: dict, wide: dict) -> dict:
+    """Kernels A and D (a round) and C and E (the cold sweep) at each band
+    of ``WIDE_BANDS``, with ``use_cb``, by CUDA events, beside the plain
+    versions' times from phase 3 (over ``plain_lanes``, the lanes phase 3
+    holds to them) and the bounds: ``FLOPS_PER_CELL`` a cell the round's
+    data needs (the round's cells; the sweep's least work: kernel A's
+    counters) at the FP32 peak, or the lanes' bytes at the HBM peak.
+    Returns, per kernel, a list of one entry a band."""
+    from repro_torch.kernels import ops
+
+    out = {"A": [], "D": [], "C": [], "E": []}
+    for b in kw["bands"]:
+        fargs, ub, env = b["fargs"], b["ub"], b["env"]
+        qn, slab, cbs, lanes = fargs[0], b["slab"], b["cbs"], b["lanes_in"]
+        w, m, nl = b["window"], b["length"], b["lanes"]
+        reps = 3 if m <= 8192 else 1
+        ms = {
+            "A": cuda_ms(lambda: ops.dtw_ea_multi_fused(
+                *fargs, ub, w, m, **env), reps),
+            "D": cuda_ms(lambda: ops.dtw_ea_multi(qn, slab, ub, w, cb=cbs),
+                         reps),
+            "C": cuda_ms(lambda: ops.dtw_ea_persistent_fused(
+                *lanes, b["cold"], w, m, block_k=b["block_k"], **env), reps),
+            "E": cuda_ms(lambda: ops.dtw_ea_persistent(
+                qn, slab, lanes[2], lanes[3], b["cold"], w,
+                block_k=b["block_k"], **env), reps),
+        }
+        env_floats = qn.numel() + 2 * env["u"].numel()
+        nbytes = {"A": 4 * (nl * (m + 5) + env_floats),
+                  "D": 4 * (nl * (2 * m + 2) + qn.numel()),
+                  "C": 4 * (b["sweep_lanes"] * (m + 4) + env_floats),
+                  "E": 4 * (b["sweep_lanes"] * (m + 2) + env_floats)}
+        for name in ("A", "D", "C", "E"):
+            rnd = name in ("A", "D")
+            cells = b["round_cells" if rnd else "sweep_cells"]
+            bound = dtw_bound_ms(cells, nbytes[name])
+            plain = b["plain_ms" if rnd else "sweep_plain_ms"]
+            out[name].append({
+                "length": m, "bw": b["bw"], "lanes": nl, "ms": ms[name],
+                "plain_ms": plain, "plain_lanes": b["plain_lanes"],
+                "bound_ms": bound, "bound_by": bound_by(cells, bound),
+                "cells": cells})
+            say(f"[6 times wide] kernel {name} {b['tag']} use_cb=True: "
+                f"{ms[name]:.3f} ms (plain {plain:.1f} ms over "
+                f"{b['plain_lanes']} lanes), bound "
+                f"{bound:.4f} ms ({cells} cells, {bound_by(cells, bound)}), "
+                f"{100 * bound / ms[name]:.2f}% of the bound")
+    for rounds in ("host", "persistent"):
+        r = wide[rounds]
+        say(f"[6 times wide] search {rounds}: {r['wall_s']:.3f} s wall, "
+            f"launches {r['launches']}")
+    return out
+
+
+# The kernel letter of each DTW wrapper (kernel B has no band).
+WIDE_LETTERS = {"dtw_ea_multi_fused": "A", "dtw_ea_persistent_fused": "C",
+                "dtw_ea_multi": "D", "dtw_ea_persistent": "E"}
 
 KERNELS = ("dtw_ea_multi_fused", "lb_keogh_all_windows",
            "dtw_ea_persistent_fused", "dtw_ea_multi", "dtw_ea_persistent")
@@ -2333,47 +2903,64 @@ def shard_worker(job: dict) -> int:
     return 0
 
 
-def phase_stream_cross(torch, cfg) -> None:
-    """A stream on the card against the same stream on the CPU, then
-    ``ea_search_round`` and the full-row ``ea_pruned_dtw``."""
+def stream_inputs(cfg):
+    """The stream cross-check's reference (``BASELINE_N`` samples), its
+    ``STREAM_CROSS_Q`` queries and its arrival sizes."""
     import numpy as np
 
+    from repro_torch.data.synthetic import make_dataset, make_queries
+
+    ref = make_dataset(DATASET, BASELINE_N, seed=0).astype(np.float32)
+    qs = make_queries(DATASET, cfg.n_queries, cfg.query_len, seed=1)
+    qs = qs[:STREAM_CROSS_Q].astype(np.float32)
+    return ref, qs, arrival_sizes(BASELINE_N, STREAM_CROSS_ARRIVAL,
+                                  STREAM_SEED)
+
+
+def stream_run(cfg, dev: str) -> dict:
+    """The stream cross-check's stream on ``dev``: ``StreamSearchEngine``
+    fed ``stream_inputs``' arrivals; its answer, quarantine count, rounds
+    and seconds."""
+    from repro_torch.serve import StreamSearchEngine
+
+    ref, qs, sizes = stream_inputs(cfg)
+    t0 = time.perf_counter()
+    eng = StreamSearchEngine(qs, cfg.query_len, cfg.window, batch=cfg.batch,
+                             stream_chunk=cfg.stream_chunk, device=dev)
+    i = 0
+    for c in sizes:
+        eng.ingest(ref[i:i + c])
+        i += c
+    bs, bd = eng.best()
+    return {"best_start": bs.tolist(), "best_dist": bd.tolist(),
+            "quarantined": int(eng.quarantined_windows),
+            "rounds": int(eng.rounds), "s": time.perf_counter() - t0}
+
+
+def phase_stream_cross(torch, cfg, cpu: dict) -> None:
+    """A stream on the card against the same stream on the CPU (``cpu``,
+    from ``cpu_ref_worker``), then ``ea_search_round`` and the full-row
+    ``ea_pruned_dtw``."""
     from repro_torch.core import ea_pruned_dtw, ea_search_round
     from repro_torch.core.lower_bounds import (
         cascade_keogh_cumulative,
         envelope,
     )
-    from repro_torch.data.synthetic import make_dataset, make_queries
     from repro_torch.search.znorm import znorm
-    from repro_torch.serve import StreamSearchEngine
 
-    ref = make_dataset(DATASET, BASELINE_N, seed=0).astype(np.float32)
-    qs = make_queries(DATASET, cfg.n_queries, cfg.query_len, seed=1)
-    qs = qs[:STREAM_CROSS_Q].astype(np.float32)
-    sizes = arrival_sizes(BASELINE_N, STREAM_CROSS_ARRIVAL, STREAM_SEED)
-    out = {}
-    for dev in (DEVICE, "cpu"):
-        t0 = time.perf_counter()
-        eng = StreamSearchEngine(qs, cfg.query_len, cfg.window,
-                                 batch=cfg.batch,
-                                 stream_chunk=cfg.stream_chunk, device=dev)
-        i = 0
-        for c in sizes:
-            eng.ingest(ref[i:i + c])
-            i += c
-        bs, bd = eng.best()
-        out[dev] = (bs.cpu(), bd.cpu(), eng.quarantined_windows, eng.rounds,
-                    time.perf_counter() - t0)
-    g, h = out[DEVICE], out["cpu"]
-    rel = rel_err(g[1], h[1])
+    ref, qs, sizes = stream_inputs(cfg)
+    g, h = stream_run(cfg, DEVICE), cpu
+    rel = rel_err(torch.tensor(g["best_dist"]), torch.tensor(h["best_dist"]))
     say(f"[5 stream cross-check] N={BASELINE_N} l={cfg.query_len} "
         f"Q={STREAM_CROSS_Q} stream_chunk={cfg.stream_chunk}, {len(sizes)} "
-        f"arrivals: card {g[4]:.2f} s, cpu {h[4]:.2f} s; best_start "
-        f"{g[0].tolist()} (cpu {h[0].tolist()}); rounds {g[3]} ({h[3]}); "
-        f"best_dist max rel err {rel:.3e} (tol {TOL_CROSS})")
-    check(g[0].tolist() == h[0].tolist(),
+        f"arrivals: card {g['s']:.2f} s, cpu {h['s']:.2f} s; best_start "
+        f"{g['best_start']} (cpu {h['best_start']}); rounds {g['rounds']} "
+        f"({h['rounds']}); best_dist max rel err {rel:.3e} "
+        f"(tol {TOL_CROSS})")
+    check(g["best_start"] == h["best_start"],
           "stream: best_start differs between card and CPU")
-    check(g[2] == h[2], "stream: quarantine counts differ")
+    check(g["quarantined"] == h["quarantined"],
+          "stream: quarantine counts differ")
     check(rel <= TOL_CROSS, "stream: distances differ")
 
     # ea_search_round: one slab round (kernel D) and its fold, at l = 1024
@@ -2423,7 +3010,18 @@ def phase_stream_cross(torch, cfg) -> None:
             check(same, "ea_pruned_dtw differs between card and CPU")
 
 
-def phase_cross_check(torch) -> None:
+def search_result(res, t0: float) -> dict:
+    """A search's answer as plain numbers (a cross-check's half), with the
+    seconds since ``t0``."""
+    return {"best_start": res.best_start.tolist(),
+            "best_dist": res.best_dist.tolist(),
+            "quarantined": int(res.quarantined),
+            "s": time.perf_counter() - t0}
+
+
+def cross_runs(dev: str) -> dict:
+    """Phase 5's cross-check searches on ``dev``: ``multi_query_search`` at
+    ``CROSS`` for both drivers and both EA variants, by label."""
     import numpy as np
 
     from repro_torch.data.synthetic import make_dataset, make_queries
@@ -2433,29 +3031,51 @@ def phase_cross_check(torch) -> None:
     ref = make_dataset(DATASET, c["ref_len"], seed=0).astype(np.float32)
     qs = make_queries(DATASET, c["n_queries"], c["query_len"], seed=1)
     qs = qs.astype(np.float32)
+    out = {}
     for rounds in ("host", "persistent"):
         for variant in ("eapruned", "eapruned_nolb"):
-            out = {}
-            for dev in (DEVICE, "cpu"):
-                t0 = time.perf_counter()
-                out[dev] = multi_query_search(
-                    ref, qs, c["query_len"], c["window"], variant=variant,
-                    batch=256, rounds=rounds, device=dev,
-                )
-                torch.cuda.synchronize()
-                say(f"[5 cross-check] {rounds} {variant} {dev}: "
-                    f"{time.perf_counter() - t0:.2f} s, best_start "
-                    f"{out[dev].best_start.tolist()}")
-            g, h = out[DEVICE], out["cpu"]
-            label = f"{rounds} {variant}"
-            check(g.best_start.cpu().tolist() == h.best_start.tolist(),
-                  f"{label}: best_start differs between card and CPU")
-            check(int(g.quarantined) == int(h.quarantined),
-                  f"{label}: quarantine counts differ")
-            rel = rel_err(g.best_dist.cpu(), h.best_dist)
-            say(f"  {label}: best_dist max rel err {rel:.3e} "
-                f"(tol {TOL_CROSS})")
-            check(rel <= TOL_CROSS, f"{label}: distances differ")
+            t0 = time.perf_counter()
+            out[f"{rounds} {variant}"] = search_result(multi_query_search(
+                ref, qs, c["query_len"], c["window"], variant=variant,
+                batch=256, rounds=rounds, device=dev), t0)
+    return out
+
+
+def phase_cross_check(torch, cpu: dict) -> None:
+    """``cross_runs`` on the card against ``cpu``, the same runs on the CPU
+    (``cpu_ref_worker``): ``best_start`` and quarantine counts equal,
+    distances within ``TOL_CROSS``."""
+    card = cross_runs(DEVICE)
+    for label, g in card.items():
+        h = cpu[label]
+        for dev, r in ((DEVICE, g), ("cpu", h)):
+            say(f"[5 cross-check] {label} {dev}: {r['s']:.2f} s, best_start "
+                f"{r['best_start']}")
+        check(g["best_start"] == h["best_start"],
+              f"{label}: best_start differs between card and CPU")
+        check(g["quarantined"] == h["quarantined"],
+              f"{label}: quarantine counts differ")
+        rel = rel_err(torch.tensor(g["best_dist"]), torch.tensor(h["best_dist"]))
+        say(f"  {label}: best_dist max rel err {rel:.3e} "
+            f"(tol {TOL_CROSS})")
+        check(rel <= TOL_CROSS, f"{label}: distances differ")
+
+
+def cpu_ref_worker(job: dict) -> int:
+    """Phase 5's CPU halves (``cross_runs``, ``stream_run`` and
+    ``wide_cross_run`` with ``device="cpu"``), on ``job["threads"]``
+    threads; prints one ``RESULT <json>`` line. The script runs it beside
+    the card's phases that time nothing, since it needs no card."""
+    import torch
+
+    from repro_torch.configs.dtw_search import SearchConfig
+
+    torch.set_num_threads(job["threads"])
+    res = {"cross": cross_runs("cpu"),
+           "stream": stream_run(SearchConfig(), "cpu"),
+           "wide": wide_cross_run("cpu", "host")}
+    print("RESULT " + json.dumps(res), flush=True)
+    return 0
 
 
 def exact_distances(torch, ref, query, window: int, chunk: int = 4096):
@@ -3982,7 +4602,8 @@ def dry_cli(*args) -> list:
 
 
 def dry_start(workdir: str) -> dict:
-    """Start arms (a), (b) and (c)'s fake trace in the background, each
+    """Start arms (a), (b) and (c)'s fake trace in the background, and
+    phase 5's CPU halves (``cpu_ref_worker``, arm ``cpu_ref``), each
     writing its output to a file of ``workdir``."""
     jobs = {
         "a": dry_cli("--arch", DRY_ARCH),
@@ -3992,6 +4613,8 @@ def dry_start(workdir: str) -> dict:
         "c": [sys.executable, str(ROOT / "chip_smoke.py"), "--dry-count",
               json.dumps({"device": DEVICE, "batch": TRAIN_BATCH,
                           "seq": TRAIN_SEQ})],
+        "cpu_ref": [sys.executable, str(ROOT / "chip_smoke.py"), "--cpu-ref",
+                    json.dumps({"threads": CPU_REF_THREADS})],
     }
     procs = {}
     for arm, cmd in jobs.items():
@@ -4032,6 +4655,13 @@ def dry_join(started: dict) -> dict:
     say(f"[10 dryrun] subprocess arms {sorted(started['procs'])} done in "
         f"{time.perf_counter() - started['t0']:.2f} s from their start")
     return started
+
+
+def arm_result(started: dict, arm: str) -> dict:
+    """The ``RESULT <json>`` line an ended arm printed last."""
+    text = started["text"][arm]
+    line = [x for x in text.splitlines() if x.startswith("RESULT ")][-1]
+    return json.loads(line[len("RESULT "):])
 
 
 def dry_count_worker(job: dict) -> int:
@@ -4153,9 +4783,7 @@ def dry_count(torch, started: dict, train_a: dict) -> dict:
     loss = float(m["loss"])
     del state, m
     torch.cuda.empty_cache()
-    text = started["text"]["c"]
-    line = [x for x in text.splitlines() if x.startswith("RESULT ")][-1]
-    traced = json.loads(line[len("RESULT "):])
+    traced = arm_result(started, "c")
     st = traced["hlo_stats"]
     terms = perf_cell.terms(st)
     a_ms = train_a["step_ms_p50"]
@@ -4393,10 +5021,7 @@ def main() -> int:
     ka = timed("phase 3 kernel A", phase_kernel_a, torch, prep, pq, plan,
                order, lb_sorted)
     kd = timed("phase 3 kernel D", phase_kernel_d, torch, prep, pq, plan, ka)
-    kce = timed("phase 3 kernels C, E", phase_kernel_ce, torch, prep, pq,
-                plan, order, lb_sorted)
     timed("phase 3 repeat", phase_repeat, torch, prep, plan, kb, ka)
-    del order, lb_sorted
     host = timed("phase 4 host rounds", phase_end_to_end, torch, cfg, ref,
                  queries, "host")
     loop = timed("phase 4 host loop", host_loop_split, torch, cfg, ref,
@@ -4414,17 +5039,30 @@ def main() -> int:
                   queries, host, sweep, stream, workdir)
     shard = timed("phase 4 sharded", phase_sharded, torch, cfg, ref, queries,
                   host, slab)
-    # phase 10's subprocess arms, beside the two cross-checks (no timing)
+    wide = timed("phase 4 wide", phase_wide_search, torch)
+    # phase 10's subprocess arms and phase 5's CPU halves, on the host's
+    # cores, beside the card's checks that time nothing but their plain
+    # versions (the sweeps of C and E, their plain sweeps on the card
+    # bound, and the wide row's)
     dry = dry_start(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
     try:
-        timed("phase 5", phase_cross_check, torch)
-        timed("phase 5 stream cross-check", phase_stream_cross, torch, cfg)
+        kce = timed("phase 3 kernels C, E", phase_kernel_ce, torch, prep, pq,
+                    plan, order, lb_sorted)
+        del order, lb_sorted
+        kw = timed("phase 3 wide", phase_kernels_wide, torch)
+        long_row = timed("phase 3 long row", phase_long_row, torch)
     except BaseException:
         dry_stop(dry)
         raise
     timed("phase 10 subprocess arms (the wait)", dry_join, dry)
+    cpu = arm_result(dry, "cpu_ref")
+    timed("phase 5", phase_cross_check, torch, cpu["cross"])
+    timed("phase 5 stream cross-check", phase_stream_cross, torch, cfg,
+          cpu["stream"])
+    timed("phase 5 wide cross-check", phase_wide_cross, torch, cpu["wide"])
     timed("phase 5 baselines", phase_baselines, torch, cfg)
     kernels = timed("phase 6", phase_times, torch, kb, ka, kd, kce, loop)
+    wide_ms = timed("phase 6 wide", phase_times_wide, torch, kw, wide)
     lm = timed("phase 7 lm serve", phase_lm, torch)
     train = timed("phase 8 lm train", phase_train, torch)
     sharded = timed("phase 9 lm sharded", phase_sharded_train, torch, train)
@@ -4459,6 +5097,18 @@ def main() -> int:
             arm: n[k["name"]] for arm, n in sharded["launches"].items()}
         # the search cell's (arm (d)); the other arms launch none
         k["dryrun_launches"] = dryrun["launches"]["d"][k["name"]]
+        # the wide search's (phase 4 wide), each driver's; the wide row's
+        # times at each band of phase 3 (kernel B has no band)
+        k["wide_launches"] = {r: wide[r]["launches"][k["name"]]
+                              for r in ("host", "persistent")}
+        letter = WIDE_LETTERS.get(k["name"])
+        k["wide"] = wide_ms[letter] if letter else None
+        k["wide_max_abs_err"] = kw["max_abs_err"][letter] if letter else None
+    say(f"[3 wide] largest relative error of the wide row against the plain "
+        f"version {kw['max_abs_err']['rel']:.3e}, of its counters' cells "
+        f"{kw['max_abs_err']['cells']:.3e}; long row (l = {LONG_ROW[0]}, "
+        f"CPT = 32): A {long_row['rel_A']:.3e}, C {long_row['rel_C']:.3e} "
+        f"(tol {TOL_WIDE})")
     say(f"total {time.perf_counter() - t_all:.2f} s")
     say(json.dumps({"stream": stream["arms"]}))
     say(json.dumps({"resilient": resil["arms"]}))
@@ -4479,4 +5129,6 @@ if __name__ == "__main__":
         sys.exit(shard_worker(json.loads(sys.argv[2])))
     if sys.argv[1:2] == ["--dry-count"]:
         sys.exit(dry_count_worker(json.loads(sys.argv[2])))
+    if sys.argv[1:2] == ["--cpu-ref"]:
+        sys.exit(cpu_ref_worker(json.loads(sys.argv[2])))
     sys.exit(main())

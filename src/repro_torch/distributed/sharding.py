@@ -230,14 +230,16 @@ def batch_axes(mesh) -> tuple:
 
 
 def row_axes(mesh, rows: int):
-    """The batch axes for a leading dimension of ``rows``: ``(pod, data)``
-    when they divide it, else None (replicated)."""
-    sizes = _sizes(mesh)
-    ba = batch_axes(mesh)
-    total = 1
-    for a in ba:
-        total *= sizes[a]
-    return ba if rows % total == 0 else None
+    """The batch axes that split an activation's leading dimension of
+    ``rows``: the innermost run of ``(pod, data)`` that divides it
+    (``divisible_axes``, the activation anchors' rule), None (whole on
+    every rank) when none does. A finer microbatch (fewer rows than
+    ``pod * data``) stays split over ``"data"``, as the train step places
+    it, so each rank computes its own rows and no more. Batch inputs
+    (``make_batch_specs``) and caches (``spec_for_cache``) keep the
+    all-or-nothing rule; code that writes a placed cache takes the rows
+    of the cache's own placement (``attention._cache_rows``)."""
+    return divisible_axes(mesh, batch_axes(mesh), rows)
 
 
 def divisible_axes(mesh, axes, rows: int):
@@ -261,9 +263,13 @@ def make_batch_specs(batch_shapes: dict, mesh) -> dict:
     leading dim stays replicated. ``batch_shapes`` maps names to anything
     with a ``.shape`` (arrays, tensors)."""
 
+    ba = batch_axes(mesh)
+    total = math.prod(_sizes(mesh)[a] for a in ba)
+
     def spec(v):
         shape = tuple(v.shape)
-        return P(row_axes(mesh, shape[0]), *([None] * (len(shape) - 1)))
+        lead = ba if shape[0] % total == 0 else None
+        return P(lead, *([None] * (len(shape) - 1)))
 
     return {k: spec(v) for k, v in batch_shapes.items()}
 

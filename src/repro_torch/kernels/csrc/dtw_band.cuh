@@ -7,6 +7,13 @@
 // RefWindow slices and normalizes the reference, SlabWindow reads a row of
 // a normalized slab) and who carries its upper bound.
 //
+// Bands up to 1024 columns run the row below. Wider bands, up to the
+// longest query kernel B takes and past it, run the wide row of
+// dtw_band_wide.cuh instead: a thread block of 8 warps a lane and the
+// previous row in shared memory (that header says why that layout, and in
+// what order it adds P). kernels/ops.py::band_layout picks the row; the
+// row below is the same code for every band it takes.
+//
 // Layout: one warp runs one lane, with no block barrier anywhere in a lane.
 // The band's columns live in registers, CPT contiguous slots a thread
 // (thread t holds slots t*CPT .. t*CPT + CPT - 1); the band is padded to

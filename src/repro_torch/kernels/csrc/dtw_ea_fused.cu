@@ -43,7 +43,15 @@
 //
 // Rounding: see dtw_band.cuh. The divide in the normalization is IEEE (no
 // --use_fast_math), as on the CPU.
+//
+// Bands wider than 1024 columns (warps > 1 from kernels/ops.py::band_layout)
+// run dtw_band_wide.cuh's row instead: a thread block of 8 warps a lane,
+// the previous row in shared memory, a grid of as many blocks as stay
+// resident walking the lanes in turn. Each block first normalizes its
+// lane's window into its slice of a device scratch (2m floats a block, the
+// wrapper's) and, when use_cb, builds the cb suffix beside it.
 #include "dtw_band.cuh"
+#include "dtw_band_wide.cuh"
 
 namespace {
 
@@ -126,18 +134,90 @@ int launch(const float* queries, const float* ref, const int* starts,
   return (int)cudaGetLastError();
 }
 
+template <bool kInfo>
+__global__ void __launch_bounds__(kWideThreads) dtw_ea_fused_wide_kernel(
+    const float* __restrict__ queries, const float* __restrict__ ref,
+    const int* __restrict__ starts, const float* __restrict__ mu,
+    const float* __restrict__ sg, const float* __restrict__ ub,
+    const float* __restrict__ upper, const float* __restrict__ lower,
+    float* __restrict__ out, int* __restrict__ rows, int* __restrict__ cells,
+    float* scratch,  // (gridDim.x, 2, m): normalized window, cb suffix
+    long long lanes, int n_ref, int K, int n, int m, int window, int bw,
+    int use_cb) {
+  extern __shared__ float smem[];
+  __shared__ WideShared sh;
+  float* xs = scratch + (size_t)blockIdx.x * 2 * m;
+  float* cbs = use_cb ? xs + m : nullptr;
+  for (long long lane = blockIdx.x; lane < lanes; lane += gridDim.x) {
+    const int q = (int)(lane / K);
+    const int start = starts[lane];
+    const float ubv = ub[lane];
+    const bool bad = start < 0 || start > n_ref - m;
+    if (bad || ubv < 0.f) {  // out of range (NaN) or a dead lane (+inf)
+      if (threadIdx.x == 0) {
+        out[lane] = bad ? NAN : INFINITY;
+        if constexpr (kInfo) write_counts(rows, cells, lane,
+                                          dead_lane_counts(m, window));
+      }
+      continue;
+    }
+    __syncthreads();  // the previous lane has read the scratch
+    const RefWindow win{ref + start, mu[lane], sg[lane], m};
+    wide_stage(win, xs, upper + (size_t)q * m, lower + (size_t)q * m, cbs, m);
+    Counts c;
+    const float d = wide_lane<false, kInfo>(
+        queries + (size_t)q * n, WideWindow{xs}, cbs, ubv, nullptr, n, m,
+        window, bw, smem, sh, &c);
+    if (threadIdx.x == 0) {
+      out[lane] = d;
+      if constexpr (kInfo) write_counts(rows, cells, lane, c);
+    }
+  }
+}
+
+template <bool kInfo>
+cudaError_t wide_grid(int bw, long long* blocks) {
+  return wide_resident_blocks(dtw_ea_fused_wide_kernel<kInfo>,
+                              (size_t)bw * sizeof(float), blocks);
+}
+
 }  // namespace
 
+// The thread blocks of a wide launch (bw > 1024) resident at once: the
+// grid, and the blocks the scratch must hold (at most the lanes).
+extern "C" int dtw_ea_fused_grid(int bw, int info, long long* blocks) {
+  return (int)(info ? wide_grid<true>(bw, blocks)
+                    : wide_grid<false>(bw, blocks));
+}
+
 // rows and cells: (Q * K,) int32 counters, or both null for the
-// counter-free kernel.
+// counter-free kernel. warps == 1: the one-warp row with `cpt` columns a
+// thread; warps == 8 (cpt == 8): the wide row, its grid `blocks` thread
+// blocks and `scratch` 2 * m floats for each of them.
 extern "C" int dtw_ea_fused_launch(
     const float* queries, const float* ref, const int* starts, const float* mu,
     const float* sg, const float* ub, const float* upper, const float* lower,
-    float* out, int* rows, int* cells, int n_ref, int n_queries, int K, int n,
-    int m, int window, int bw, int use_cb, int cpt, void* stream) {
-  if (bw < 1 || bw > 32 * cpt) return (int)cudaErrorInvalidValue;
+    float* out, int* rows, int* cells, float* scratch, long long blocks,
+    int n_ref, int n_queries, int K, int n, int m, int window, int bw,
+    int use_cb, int warps, int cpt, void* stream) {
   const long long lanes = (long long)n_queries * K;
   const cudaStream_t s = (cudaStream_t)stream;
+  if (warps != 1) {
+    if (warps != kWideWarps || cpt != kWideCpt || bw < 1 || bw > m ||
+        blocks < 1 || scratch == nullptr) {
+      return (int)cudaErrorInvalidValue;
+    }
+    const size_t smem = (size_t)bw * sizeof(float);
+    const auto kernel = rows != nullptr ? dtw_ea_fused_wide_kernel<true>
+                                        : dtw_ea_fused_wide_kernel<false>;
+    cudaError_t err = wide_smem_limit(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(unsigned)blocks, kWideThreads, smem, s>>>(
+        queries, ref, starts, mu, sg, ub, upper, lower, out, rows, cells,
+        scratch, lanes, n_ref, K, n, m, window, bw, use_cb);
+    return (int)cudaGetLastError();
+  }
+  if (bw < 1 || bw > 32 * cpt) return (int)cudaErrorInvalidValue;
 #define DTW_A(C)                                                             \
   case C:                                                                    \
     return launch<C>(queries, ref, starts, mu, sg, ub, upper, lower, out,    \
@@ -152,5 +232,9 @@ extern "C" int dtw_ea_fused_launch(
 }
 
 extern "C" const char* dtw_ea_fused_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+extern "C" const char* dtw_ea_fused_grid_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

@@ -65,9 +65,17 @@
 // blocks resident than C. Now C and E differ only in the loader of the
 // window's next columns, and registers, not shared memory, set the lanes
 // each keeps in flight.
+//
+// Bands wider than 1024 columns run dtw_band_wide.cuh's row: a thread block
+// of 8 warps is one lane in flight, its thread 0 draws, gates and folds
+// for the block and broadcasts the lane through shared memory, and each
+// block keeps its lane's normalized window (C) and cb suffix in its slice
+// of a device scratch (2m floats a block, the wrapper's). The protocol is
+// the one above: the same gate, re-read period and 64-bit atomicMin fold.
 #include <stdint.h>
 
 #include "dtw_band.cuh"
+#include "dtw_band_wide.cuh"
 
 namespace {
 
@@ -189,6 +197,85 @@ __global__ void __launch_bounds__(kWarps * 32) persistent_sweep(
   }
 }
 
+// The wide form of persistent_sweep: one lane a thread block.
+template <bool kFused>
+__global__ void __launch_bounds__(kWideThreads) persistent_sweep_wide(
+    const float* __restrict__ queries, const float* __restrict__ ref,
+    const float* __restrict__ mu, const float* __restrict__ sg,
+    const float* __restrict__ windows, const float* __restrict__ lb,
+    const int* __restrict__ starts, const float* __restrict__ upper,
+    const float* __restrict__ lower, u64* inc, int* state,
+    float* scratch,  // (gridDim.x, 2, m): C's normalized window, cb suffix
+    int n_ref, int nq, int K, int n, int m, int window, int bw, int use_cb) {
+  extern __shared__ float smem[];
+  __shared__ WideShared sh;
+  float* xs = scratch + (size_t)blockIdx.x * 2 * m;
+  float* cbs = use_cb ? xs + m : nullptr;
+  int q = (int)(blockIdx.x % nq);
+  int idle = 0;  // queries in a row found done
+  while (idle < nq) {
+    if (threadIdx.x == 0) {
+      int j = -1;  // -1: the query is done; -2: skip an unreadable lane
+      float ubq = 0.f;
+      volatile int* st = state + q * kStateInts;
+      if (!st[kDone]) {
+        const int jj = atomicAdd((int*)&st[kNext], 1);
+        if (jj >= K) {
+          st[kDone] = 1;
+        } else {
+          const long long l = (long long)q * K + jj;
+          const float lbj = lb[l];
+          const u64 w = *(volatile u64*)&inc[q];
+          const u64 key = ((u64)dist_key(lbj) << 32) | (unsigned)(jj + 1);
+          if (!(lbj < INFINITY) || key >= w) {
+            st[kDone] = 1;  // sorted bounds: every later lane fails too
+          } else if (kFused && (starts[l] < 0 || starts[l] > n_ref - m)) {
+            j = -2;  // counted by count_bad_starts, never read
+          } else {
+            j = jj;
+            ubq = __uint_as_float((unsigned)(w >> 32));
+            atomicMax((int*)&st[kMaxRun], jj);
+            atomicAdd((int*)&st[kRan], 1);
+          }
+        }
+      }
+      sh.j = j;
+      sh.ubq = ubq;
+    }
+    __syncthreads();
+    const int j = sh.j;
+    const float ubq = sh.ubq;
+    __syncthreads();  // every thread has read the draw before the next one
+    const int qq = q;
+    q = q + 1 == nq ? 0 : q + 1;
+    if (j == -1) {
+      ++idle;
+      continue;
+    }
+    idle = 0;
+    if (j < 0) continue;
+
+    const long long l = (long long)qq * K + j;
+    const float* uq = upper + (size_t)qq * m;
+    const float* lq = lower + (size_t)qq * m;
+    WideWindow win{xs};
+    if (kFused) {
+      wide_stage(RefWindow{ref + starts[l], mu[l], sg[l], m}, xs, uq, lq,
+                 cbs, m);
+    } else {
+      win.x = windows + l * m;
+      wide_stage(SlabWindow{win.x, m}, nullptr, uq, lq, cbs, m);
+    }
+    const float d = wide_lane<true, false>(queries + (size_t)qq * n, win, cbs,
+                                           ubq, &inc[qq], n, m, window, bw,
+                                           smem, sh);
+    if (threadIdx.x == 0 && d < INFINITY) {
+      atomicMin(&inc[qq], ((u64)dist_key(d) << 32) | (unsigned)(j + 1));
+    }
+    __syncthreads();  // the lane has read the scratch and sh
+  }
+}
+
 __global__ void persistent_finish(
     const float* __restrict__ ub_init, const int* __restrict__ starts,
     const u64* __restrict__ inc, const int* __restrict__ state,
@@ -230,6 +317,57 @@ cudaError_t resident_grid(int m, int use_cb, int* warps, size_t* smem,
   return cudaSuccess;
 }
 
+// The wide sweep's resident grid: blocks (one lane each) resident at once.
+template <bool kFused>
+cudaError_t wide_grid(int bw, long long* blocks) {
+  return wide_resident_blocks(persistent_sweep_wide<kFused>,
+                              (size_t)bw * sizeof(float), blocks);
+}
+
+// The init, bad-start count and finish passes around a sweep.
+template <bool kFused, class Sweep>
+int launch_sweep(Sweep sweep, const float* ub_init, const int* starts,
+                 float* best_dist, int* best_start, int* blocks, u64* inc,
+                 int* state, int n_ref, int nq, int K, int m, int block_k,
+                 cudaStream_t stream) {
+  const long long lanes = (long long)nq * K;
+  const int qb = (nq + 127) / 128;
+  persistent_init<<<qb, 128, 0, stream>>>(ub_init, inc, state, nq);
+  if (kFused) {
+    const long long cb_blocks = (lanes + 255) / 256;
+    count_bad_starts<<<(unsigned)(cb_blocks < 4096 ? cb_blocks : 4096), 256, 0,
+                       stream>>>(starts, state, lanes, K, n_ref, m);
+  }
+  sweep();
+  persistent_finish<<<qb, 128, 0, stream>>>(ub_init, starts, inc, state,
+                                           best_dist, best_start, blocks, nq,
+                                           K, block_k);
+  return (int)cudaGetLastError();
+}
+
+template <bool kFused>
+int launch_wide(const float* queries, const float* ref, const float* mu,
+                const float* sg, const float* windows, const float* lb,
+                const int* starts, const float* ub_init, const float* upper,
+                const float* lower, float* best_dist, int* best_start,
+                int* blocks, u64* inc, int* state, float* scratch,
+                long long grid, int n_ref, int nq, int K, int n, int m,
+                int window, int bw, int use_cb, int block_k,
+                cudaStream_t stream) {
+  const size_t smem = (size_t)bw * sizeof(float);
+  cudaError_t err = wide_smem_limit(persistent_sweep_wide<kFused>, smem);
+  if (err != cudaSuccess) return (int)err;
+  return launch_sweep<kFused>(
+      [&] {
+        persistent_sweep_wide<kFused><<<(unsigned)grid, kWideThreads, smem,
+                                        stream>>>(
+            queries, ref, mu, sg, windows, lb, starts, upper, lower, inc,
+            state, scratch, n_ref, nq, K, n, m, window, bw, use_cb);
+      },
+      ub_init, starts, best_dist, best_start, blocks, inc, state, n_ref, nq,
+      K, m, block_k, stream);
+}
+
 template <int CPT, bool kFused>
 int launch(const float* queries, const float* ref, const float* mu,
            const float* sg, const float* windows, const float* lb,
@@ -247,32 +385,46 @@ int launch(const float* queries, const float* ref, const float* mu,
   const long long need = (lanes + warps - 1) / warps;  // one warp a lane
   if (grid > need) grid = need;
   if (grid < 1) grid = 1;
+  return launch_sweep<kFused>(
+      [&] {
+        persistent_sweep<CPT, kFused><<<(unsigned)grid, warps * 32, smem,
+                                        stream>>>(
+            queries, ref, mu, sg, windows, lb, starts, upper, lower, inc,
+            state, n_ref, nq, K, n, m, window, bw, use_cb);
+      },
+      ub_init, starts, best_dist, best_start, blocks, inc, state, n_ref, nq,
+      K, m, block_k, stream);
+}
 
-  const int qb = (nq + 127) / 128;
-  persistent_init<<<qb, 128, 0, stream>>>(ub_init, inc, state, nq);
-  if (kFused) {
-    const long long cb_blocks = (lanes + 255) / 256;
-    count_bad_starts<<<(unsigned)(cb_blocks < 4096 ? cb_blocks : 4096), 256, 0,
-                       stream>>>(starts, state, lanes, K, n_ref, m);
-  }
-  persistent_sweep<CPT, kFused><<<(unsigned)grid, warps * 32, smem, stream>>>(
-      queries, ref, mu, sg, windows, lb, starts, upper, lower, inc, state,
-      n_ref, nq, K, n, m, window, bw, use_cb);
-  persistent_finish<<<qb, 128, 0, stream>>>(ub_init, starts, inc, state,
-                                           best_dist, best_start, blocks, nq,
-                                           K, block_k);
-  return (int)cudaGetLastError();
+bool wide_args_ok(int warps, int cpt, int bw, int m, long long grid,
+                  const float* scratch) {
+  return warps == kWideWarps && cpt == kWideCpt && bw >= 1 && bw <= m &&
+         grid >= 1 && scratch != nullptr;
 }
 
 }  // namespace
 
-// Kernel C: lanes slice and normalize their windows out of `ref`.
+// Kernel C: lanes slice and normalize their windows out of `ref`. warps ==
+// 1: the one-warp row with `cpt` columns a thread; warps == 8 (cpt == 8):
+// the wide row on `grid` thread blocks (dtw_ea_persistent_grid) with
+// `scratch` 2 * m floats for each of them.
 extern "C" int dtw_ea_persistent_fused_launch(
     const float* queries, const float* ref, const float* lb, const int* starts,
     const float* mu, const float* sg, const float* ub_init, const float* upper,
     const float* lower, float* best_dist, int* best_start, int* blocks,
-    void* inc, int* state, int n_ref, int nq, int K, int n, int m, int window,
-    int bw, int use_cb, int block_k, int cpt, void* stream) {
+    void* inc, int* state, float* scratch, long long grid, int n_ref, int nq,
+    int K, int n, int m, int window, int bw, int use_cb, int block_k,
+    int warps, int cpt, void* stream) {
+  if (warps != 1) {
+    if (!wide_args_ok(warps, cpt, bw, m, grid, scratch)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    return launch_wide<true>(queries, ref, mu, sg, nullptr, lb, starts,
+                             ub_init, upper, lower, best_dist, best_start,
+                             blocks, (u64*)inc, state, scratch, grid, n_ref,
+                             nq, K, n, m, window, bw, use_cb, block_k,
+                             (cudaStream_t)stream);
+  }
   if (bw < 1 || bw > 32 * cpt) return (int)cudaErrorInvalidValue;
 #define DTW_C(C)                                                             \
   case C:                                                                    \
@@ -288,13 +440,25 @@ extern "C" int dtw_ea_persistent_fused_launch(
 #undef DTW_C
 }
 
-// Kernel E: lanes read their windows from the (Q, K, m) slab.
+// Kernel E: lanes read their windows from the (Q, K, m) slab; warps, grid
+// and scratch as kernel C's.
 extern "C" int dtw_ea_persistent_launch(
     const float* queries, const float* windows, const float* lb,
     const int* starts, const float* ub_init, const float* upper,
     const float* lower, float* best_dist, int* best_start, int* blocks,
-    void* inc, int* state, int nq, int K, int n, int m, int window, int bw,
-    int use_cb, int block_k, int cpt, void* stream) {
+    void* inc, int* state, float* scratch, long long grid, int nq, int K,
+    int n, int m, int window, int bw, int use_cb, int block_k, int warps,
+    int cpt, void* stream) {
+  if (warps != 1) {
+    if (!wide_args_ok(warps, cpt, bw, m, grid, scratch)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    return launch_wide<false>(queries, nullptr, nullptr, nullptr, windows, lb,
+                              starts, ub_init, upper, lower, best_dist,
+                              best_start, blocks, (u64*)inc, state, scratch,
+                              grid, 0, nq, K, n, m, window, bw, use_cb,
+                              block_k, (cudaStream_t)stream);
+  }
   if (bw < 1 || bw > 32 * cpt) return (int)cudaErrorInvalidValue;
 #define DTW_E(C)                                                             \
   case C:                                                                    \
@@ -311,10 +475,20 @@ extern "C" int dtw_ea_persistent_launch(
 #undef DTW_E
 }
 
-// The lanes (warps) a launch of kernel C (`fused` != 0) or E keeps in
-// flight before it caps them at the lane count.
-extern "C" int dtw_ea_persistent_grid(int fused, int m, int use_cb, int cpt,
+// The lanes a launch of kernel C (`fused` != 0) or E keeps in flight before
+// it caps them at the lane count: warps (one-warp row, warps == 1) or
+// thread blocks (the wide row, warps == 8 at a band of bw columns), which
+// is also the grid of a wide launch and the blocks its scratch holds.
+extern "C" int dtw_ea_persistent_grid(int fused, int m, int bw, int use_cb,
+                                      int warps_a_lane, int cpt,
                                       long long* lanes) {
+  if (warps_a_lane != 1) {
+    if (warps_a_lane != kWideWarps || cpt != kWideCpt || bw < 1) {
+      return (int)cudaErrorInvalidValue;
+    }
+    return (int)(fused ? wide_grid<true>(bw, lanes)
+                       : wide_grid<false>(bw, lanes));
+  }
   int warps = 0;
   size_t smem = 0;
   long long grid = 0;

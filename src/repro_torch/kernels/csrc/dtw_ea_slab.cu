@@ -7,7 +7,7 @@
 // when cb is on, the (Q, K, m) cb slab, and each lane runs banded
 // EAPrunedDTW against its own ub. Output: the distance, or +inf where the
 // lane abandoned; a negative ub is the dead-lane sentinel (+inf, no row
-// run). With n != m the band is the full row (bw = m <= 1024), as in repro.
+// run). With n != m the band is the full row (bw = m), as in repro.
 // With counters (rows != nullptr, the TPU kernel's emit_info), lane 0 of
 // each warp also writes the lane's EAInfo rows and cells, as kernel A does.
 //
@@ -21,7 +21,13 @@
 //
 // Bound: operations, as kernel A (the row's instruction stream); bytes are
 // the lane's m (or 2m with cb) floats of slab.
+//
+// Bands wider than 1024 columns (full rows with m > 1024 among them) run
+// dtw_band_wide.cuh's row, as kernel A's do: a thread block of 8 warps a
+// lane, as many blocks as stay resident walking the lanes in turn, the
+// window and the cb suffix read from their slab rows (no scratch).
 #include "dtw_band.cuh"
+#include "dtw_band_wide.cuh"
 
 namespace {
 
@@ -90,17 +96,79 @@ int launch(const float* queries, const float* windows, const float* cbs,
   return (int)cudaGetLastError();
 }
 
+template <bool kInfo>
+__global__ void __launch_bounds__(kWideThreads) dtw_ea_slab_wide_kernel(
+    const float* __restrict__ queries, const float* __restrict__ windows,
+    const float* __restrict__ cbs, const float* __restrict__ ub,
+    float* __restrict__ out, int* __restrict__ rows, int* __restrict__ cells,
+    long long lanes, int K, int n, int m, int window, int bw) {
+  extern __shared__ float smem[];
+  __shared__ WideShared sh;
+  for (long long lane = blockIdx.x; lane < lanes; lane += gridDim.x) {
+    const int q = (int)(lane / K);
+    const float ubv = ub[lane];
+    if (ubv < 0.f) {  // dead-lane sentinel: the lane would die on row 0
+      if (threadIdx.x == 0) {
+        out[lane] = INFINITY;
+        if constexpr (kInfo) write_counts(rows, cells, lane,
+                                          dead_lane_counts(m, window));
+      }
+      continue;
+    }
+    Counts c;
+    const float d = wide_lane<false, kInfo>(
+        queries + (size_t)q * n, WideWindow{windows + lane * m},
+        cbs != nullptr ? cbs + lane * m : nullptr, ubv, nullptr, n, m, window,
+        bw, smem, sh, &c);
+    if (threadIdx.x == 0) {
+      out[lane] = d;
+      if constexpr (kInfo) write_counts(rows, cells, lane, c);
+    }
+  }
+}
+
+template <bool kInfo>
+cudaError_t wide_grid(int bw, long long* blocks) {
+  return wide_resident_blocks(dtw_ea_slab_wide_kernel<kInfo>,
+                              (size_t)bw * sizeof(float), blocks);
+}
+
 }  // namespace
 
+// The thread blocks of a wide launch (bw > 1024) resident at once: its
+// grid, before the wrapper caps it at the lanes.
+extern "C" int dtw_ea_slab_grid(int bw, int info, long long* blocks) {
+  return (int)(info ? wide_grid<true>(bw, blocks)
+                    : wide_grid<false>(bw, blocks));
+}
+
 // rows and cells: (Q * K,) int32 counters, or both null for the
-// counter-free kernel.
+// counter-free kernel. warps == 1: the one-warp row with `cpt` columns a
+// thread; warps == 8 (cpt == 8): the wide row on a grid of `blocks` thread
+// blocks (dtw_ea_slab_grid).
 extern "C" int dtw_ea_slab_launch(
     const float* queries, const float* windows, const float* cbs,
-    const float* ub, float* out, int* rows, int* cells, int n_queries, int K,
-    int n, int m, int window, int bw, int cpt, void* stream) {
-  if (bw < 1 || bw > 32 * cpt) return (int)cudaErrorInvalidValue;
+    const float* ub, float* out, int* rows, int* cells, long long blocks,
+    int n_queries, int K, int n, int m, int window, int bw, int warps,
+    int cpt, void* stream) {
   const long long lanes = (long long)n_queries * K;
   const cudaStream_t s = (cudaStream_t)stream;
+  if (warps != 1) {
+    if (warps != kWideWarps || cpt != kWideCpt || bw < 1 || bw > m ||
+        blocks < 1) {
+      return (int)cudaErrorInvalidValue;
+    }
+    const size_t smem = (size_t)bw * sizeof(float);
+    const auto kernel = rows != nullptr ? dtw_ea_slab_wide_kernel<true>
+                                        : dtw_ea_slab_wide_kernel<false>;
+    cudaError_t err = wide_smem_limit(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(unsigned)blocks, kWideThreads, smem, s>>>(
+        queries, windows, cbs, ub, out, rows, cells, lanes, K, n, m, window,
+        bw);
+    return (int)cudaGetLastError();
+  }
+  if (bw < 1 || bw > 32 * cpt) return (int)cudaErrorInvalidValue;
 #define DTW_D(C)                                                             \
   case C:                                                                    \
     return launch<C>(queries, windows, cbs, ub, out, rows, cells, lanes, K, \
@@ -111,6 +179,10 @@ extern "C" int dtw_ea_slab_launch(
       return (int)cudaErrorInvalidValue;
   }
 #undef DTW_D
+}
+
+extern "C" const char* dtw_ea_slab_grid_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
 }
 
 extern "C" const char* dtw_ea_slab_error_string(int code) {

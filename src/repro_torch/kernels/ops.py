@@ -31,13 +31,18 @@ Signatures follow ``repro/kernels/ops.py``. The Pallas tiling knobs
 (``row_block``, ``ref_budget``, ``chunk``, and ``block_k`` of the round
 kernels) are accepted and change no result: the DTW kernels run one warp
 per lane with the band in its registers (``cols_per_thread`` columns a
-thread) and the row loop inside the warp, and keep the reference in device
-memory. In the persistent sweeps ``block_k`` sets the granularity of the
+thread) and the row loop inside the warp, up to ``MAX_BAND_WIDTH`` = 1024
+columns, and past that a thread block of ``WIDE_WARPS`` warps per lane
+with the previous DP row in shared memory (``band_layout``;
+``csrc/dtw_band_wide.cuh``); they keep the reference in device memory.
+In the persistent sweeps ``block_k`` sets the granularity of the
 ``blocks`` work metric.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -52,9 +57,25 @@ from repro_torch.kernels.dtw_band import (
 )
 from repro_torch.kernels.lb_keogh import lb_all_windows_plain
 
-# The widest band the DTW kernels hold: one warp, at most 32 columns in
-# each of its 32 threads' registers.
+# The widest band the one-warp DP row holds: at most 32 columns in each of
+# its 32 threads' registers (csrc/dtw_band.cuh).
 MAX_BAND_WIDTH = 1024
+
+# The wide DP row (csrc/dtw_band_wide.cuh), for bands past MAX_BAND_WIDTH:
+# a thread block of WIDE_WARPS warps per lane, WIDE_CPT columns a thread in
+# registers for each segment of WIDE_SEGMENT columns a row walks, and the
+# previous row (bw floats) in dynamic shared memory beside at most
+# WIDE_STATIC_SMEM bytes of static shared memory (its WideShared). A block
+# may hold BLOCK_SMEM_MAX bytes of shared memory on an H100, so the wide row
+# takes bands up to WIDE_MAX_BAND (58,048) columns, twice the longest query
+# kernel B takes. chip_smoke.py's build phase prints the wide kernels'
+# registers a thread (ptxas).
+WIDE_WARPS = 8
+WIDE_CPT = 8
+WIDE_SEGMENT = 32 * WIDE_WARPS * WIDE_CPT
+WIDE_STATIC_SMEM = 256
+BLOCK_SMEM_MAX = 227 * 1024
+WIDE_MAX_BAND = (BLOCK_SMEM_MAX - WIDE_STATIC_SMEM) // 4
 
 # Kernel B's tiling (csrc/lb_keogh.cu): a block holds LB_WINDOWS windows and
 # one tile of q_tile queries, whose envelopes and reference span sit in
@@ -71,6 +92,7 @@ LB_QUERY_TILES = (8, 4, 2, 1)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 
 
 def _lib(name: str, fn: str, argtypes) -> tuple:
@@ -138,6 +160,61 @@ def cols_per_thread(bw: int) -> int:
     while 32 * cpt < bw:
         cpt *= 2
     return cpt
+
+
+class BandLayout(NamedTuple):
+    """How the DTW kernels hold one lane's band (``band_layout``)."""
+
+    warps: int            # warps that run one lane
+    cols_per_thread: int  # band columns a thread holds in registers at once
+    segments: int         # passes a DP row makes over the band
+
+    @property
+    def tier(self) -> str:
+        """Where the previous DP row lives: ``"registers"`` (one warp) or
+        ``"shared"`` (the wide row)."""
+        return "registers" if self.warps == 1 else "shared"
+
+    def smem_bytes(self, bw: int, length: int, use_cb: bool) -> int:
+        """Shared memory of a thread block that runs one lane: the one-warp
+        row's cb slice (``length`` floats, when ``use_cb``; its kernels put
+        up to 4 lanes in a block where their slices fit), the wide row's
+        previous row and static part (its cb lies in global memory)."""
+        if self.tier == "registers":
+            return 4 * int(length) if use_cb else 0
+        return 4 * int(bw) + WIDE_STATIC_SMEM
+
+
+def band_layout(bw: int, length: int | None = None,
+                use_cb: bool = False) -> BandLayout:
+    """The layout of a band of ``bw`` columns: up to ``MAX_BAND_WIDTH`` the
+    one-warp row in registers, ``cols_per_thread(bw)`` columns a thread;
+    past it the wide row, ``WIDE_WARPS`` warps a lane and the previous row
+    in shared memory, walked in segments of ``WIDE_SEGMENT`` columns.
+    Raises where no layout holds the lane: a band past ``WIDE_MAX_BAND``,
+    or, with ``use_cb`` on windows of ``length``, a one-warp row's cb slice
+    beyond ``BLOCK_SMEM_MAX``."""
+    bw = int(bw)
+    if bw < 1:
+        raise ValueError(f"band_width {bw} < 1")
+    if bw <= MAX_BAND_WIDTH:
+        layout = BandLayout(1, cols_per_thread(bw), 1)
+    elif bw <= WIDE_MAX_BAND:
+        layout = BandLayout(WIDE_WARPS, WIDE_CPT, -(-bw // WIDE_SEGMENT))
+    else:
+        raise ValueError(
+            f"band_width {bw} > {WIDE_MAX_BAND}: the wide DTW row holds a "
+            f"lane's previous row in a block's {BLOCK_SMEM_MAX} bytes of "
+            "shared memory"
+        )
+    if length is not None and layout.smem_bytes(bw, length, use_cb) > \
+            BLOCK_SMEM_MAX:
+        raise ValueError(
+            f"length {length}: a lane's cb slice of {length} floats does not "
+            f"fit a block's {BLOCK_SMEM_MAX} bytes of shared memory (the "
+            f"one-warp row, band_width {bw} <= {MAX_BAND_WIDTH})"
+        )
+    return layout
 
 
 def lb_smem_bytes(length: int, q_tile: int, span: bool = True) -> int:
@@ -264,18 +341,22 @@ def dtw_ea_multi_fused(
         )
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    cpt = cols_per_thread(bw)
+    layout = band_layout(bw, m, use_cb)
     out, counts = _round_outputs(nq, k, dev, with_info)
     if nq * k == 0:
         return (out, *counts) if with_info else out
+    scratch, blocks = _wide_launch(layout, "dtw_ea_fused",
+                                   (bw, int(with_info)), m, nq * k, dev)
     launch, err = _lib("dtw_ea_fused", "dtw_ea_fused_launch",
-                       [_P] * 11 + [_I] * 9 + [_P])
+                       [_P] * 12 + [_LL] + [_I] * 10 + [_P])
     code = launch(
         queries.data_ptr(), ref.data_ptr(), starts.data_ptr(), mu.data_ptr(),
         sg.data_ptr(), ub.data_ptr(),
         u.data_ptr() if use_cb else None, low.data_ptr() if use_cb else None,
-        out.data_ptr(), *_ptrs(counts), ref.shape[0], nq, k, n, m, window,
-        bw, int(use_cb), cpt, _stream(dev),
+        out.data_ptr(), *_ptrs(counts),
+        None if scratch is None else scratch.data_ptr(), blocks,
+        ref.shape[0], nq, k, n, m, window, bw, int(use_cb), layout.warps,
+        layout.cols_per_thread, _stream(dev),
     )
     _raise_on(code, err, "dtw_ea_fused")
     dtw_ea_multi_fused.launches += 1
@@ -440,17 +521,19 @@ def dtw_ea_multi(
                             count=with_info)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    cpt = cols_per_thread(bw)
+    layout = band_layout(bw, m, cb is not None)
     out, counts = _round_outputs(nq, k, dev, with_info)
     if nq * k == 0:
         return (out, *counts) if with_info else out
+    _, blocks = _wide_launch(layout, "dtw_ea_slab", (bw, int(with_info)), m,
+                             nq * k, dev, scratch=False)
     launch, err = _lib("dtw_ea_slab", "dtw_ea_slab_launch",
-                       [_P] * 7 + [_I] * 7 + [_P])
+                       [_P] * 7 + [_LL] + [_I] * 8 + [_P])
     code = launch(
         queries.data_ptr(), candidates.data_ptr(),
         None if cb is None else cb.data_ptr(), ub_l.data_ptr(),
-        out.data_ptr(), *_ptrs(counts), nq, k, n, m, window, bw, cpt,
-        _stream(dev),
+        out.data_ptr(), *_ptrs(counts), blocks, nq, k, n, m, window, bw,
+        layout.warps, layout.cols_per_thread, _stream(dev),
     )
     _raise_on(code, err, "dtw_ea_slab")
     dtw_ea_multi.launches += 1
@@ -586,20 +669,24 @@ def dtw_ea_persistent(
         )
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    cpt = cols_per_thread(bw)
+    layout = band_layout(bw, m, use_cb)
     dist, best, blocks = _persistent_outputs(nq, dev)
     if nq * k == 0:
         return seeds.clone(), best.fill_(-1), blocks.zero_()
     inc, state = _persistent_state(nq, dev)
+    scratch, grid = _wide_launch(layout, "dtw_ea_persistent",
+                                 _grid_args(False, m, bw, use_cb, layout),
+                                 m, nq * k, dev)
     launch, err = _lib("dtw_ea_persistent", "dtw_ea_persistent_launch",
-                       [_P] * 12 + [_I] * 9 + [_P])
+                       [_P] * 13 + [_LL] + [_I] * 10 + [_P])
     code = launch(
         queries.data_ptr(), candidates.data_ptr(), lb.data_ptr(),
         starts.data_ptr(), seeds.data_ptr(),
         u.data_ptr() if use_cb else None, low.data_ptr() if use_cb else None,
         dist.data_ptr(), best.data_ptr(), blocks.data_ptr(), inc.data_ptr(),
-        state.data_ptr(), nq, k, n, m, window, bw, int(use_cb), block_k, cpt,
-        _stream(dev),
+        state.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        grid, nq, k, n, m, window, bw, int(use_cb), block_k, layout.warps,
+        layout.cols_per_thread, _stream(dev),
     )
     _raise_on(code, err, "dtw_ea_persistent")
     dtw_ea_persistent.launches += 1
@@ -668,22 +755,27 @@ def dtw_ea_persistent_fused(
             u=u, low=low, use_cb=use_cb,
         )
     elif dev.type == "cuda":
-        cpt = cols_per_thread(bw)
+        layout = band_layout(bw, m, use_cb)
         dist, best, blocks = _persistent_outputs(nq, dev)
         if nq * k == 0:
             return seeds.clone(), best.fill_(-1), blocks.zero_()
         inc, state = _persistent_state(nq, dev)
+        scratch, grid = _wide_launch(layout, "dtw_ea_persistent",
+                                     _grid_args(True, m, bw, use_cb, layout),
+                                     m, nq * k, dev)
         launch, err = _lib("dtw_ea_persistent",
                            "dtw_ea_persistent_fused_launch",
-                           [_P] * 14 + [_I] * 10 + [_P])
+                           [_P] * 15 + [_LL] + [_I] * 11 + [_P])
         code = launch(
             queries.data_ptr(), ref.data_ptr(), lb.data_ptr(),
             starts.data_ptr(), mu.data_ptr(), sg.data_ptr(), seeds.data_ptr(),
             u.data_ptr() if use_cb else None,
             low.data_ptr() if use_cb else None,
             dist.data_ptr(), best.data_ptr(), blocks.data_ptr(),
-            inc.data_ptr(), state.data_ptr(), ref.shape[0], nq, k, n, m,
-            window, bw, int(use_cb), block_k, cpt, _stream(dev),
+            inc.data_ptr(), state.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), grid,
+            ref.shape[0], nq, k, n, m, window, bw, int(use_cb), block_k,
+            layout.warps, layout.cols_per_thread, _stream(dev),
         )
         _raise_on(code, err, "dtw_ea_persistent_fused")
         dtw_ea_persistent_fused.launches += 1
@@ -707,14 +799,46 @@ dtw_ea_persistent_fused.lanes_run = None
 def persistent_grid(length: int, band_width: int, use_cb: bool,
                     fused: bool = True) -> int:
     """Lanes kernel C (``fused``) or E keeps in flight on the current CUDA
-    card for windows of ``length`` and a resolved ``band_width``: one warp
-    a lane, times the thread blocks the occupancy query keeps resident,
-    which sizes each launch's grid (a launch takes fewer when it has fewer
+    card for windows of ``length`` and a resolved ``band_width``: the
+    thread blocks the occupancy query keeps resident, times the lanes a
+    block runs (its warps on the one-warp row, one on the wide row), which
+    sizes each launch's grid (a launch takes fewer when it has fewer
     lanes). Launches nothing."""
-    query, err = _lib("dtw_ea_persistent", "dtw_ea_persistent_grid",
-                      [_I] * 4 + [_P])
+    layout = band_layout(band_width, length, use_cb)
+    return _resident("dtw_ea_persistent",
+                     _grid_args(fused, length, band_width, use_cb, layout),
+                     torch.cuda.current_device())
+
+
+def _grid_args(fused: bool, m: int, bw: int, use_cb: bool,
+               layout: BandLayout) -> tuple:
+    """``dtw_ea_persistent_grid``'s arguments."""
+    return (int(fused), int(m), int(bw), int(use_cb), layout.warps,
+            layout.cols_per_thread)
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(lib: str, args: tuple, device: int) -> int:
+    """``lib``'s ``<lib>_grid(*args, &lanes)`` on card ``device``: the lanes
+    (one-warp row) or thread blocks (wide row) its kernel keeps resident,
+    from the occupancy query, asked once for each kernel, band and card."""
+    query, err = _lib(lib, f"{lib}_grid", [_I] * len(args) + [_P])
     lanes = ctypes.c_longlong(0)
-    _raise_on(query(int(fused), int(length), int(use_cb),
-                    cols_per_thread(band_width), ctypes.addressof(lanes)),
-              err, "dtw_ea_persistent_grid")
+    _raise_on(query(*args, ctypes.addressof(lanes)), err, f"{lib}_grid")
     return lanes.value
+
+
+def _wide_launch(layout: BandLayout, lib: str, args: tuple, m: int,
+                 lanes: int, dev, scratch: bool = True):
+    """A wide launch's ``(scratch, grid)``, the one sizing step of kernels
+    A, C, D and E: its grid of resident thread blocks (``_resident``), at
+    most one a lane, and, where the kernel builds a lane's window and cb
+    suffix (A, C, E; ``scratch``), 2m floats of scratch for each block,
+    from torch's caching allocator. ``(None, 0)`` on the one-warp row,
+    whose launches size their own grids."""
+    if layout.warps == 1:
+        return None, 0
+    grid = min(_resident(lib, args, torch.cuda.current_device()), lanes)
+    buf = (torch.empty(grid * 2 * m, dtype=torch.float32, device=dev)
+           if scratch else None)
+    return buf, grid

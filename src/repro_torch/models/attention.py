@@ -272,6 +272,19 @@ def _cache_shard(c):
     return local, lo, axis
 
 
+def _cache_rows(c):
+    """The mesh axes that split a placed cache's batch rows (its dim 0),
+    major to minor, or None: the cache's own layout
+    (``sharding.spec_for_cache``), which may split fewer rows than the
+    activations' (``sharding.row_axes``)."""
+    from torch.distributed.tensor import Shard
+
+    axes = tuple(name for name, pl in zip(c.device_mesh.mesh_dim_names,
+                                          c.placements)
+                 if isinstance(pl, Shard) and pl.dim == 0)
+    return axes or None
+
+
 def _rows(t, mesh, bax):
     """This rank's batch rows of ``t`` (B, ...), whole over the rest."""
     from repro_torch.distributed.hints import to_local
@@ -295,11 +308,9 @@ def fill_cache(c, k):
             c[:, :s] = k
             c[:, s:] = 0
         return
-    from repro_torch.distributed.sharding import row_axes
-
     local, lo, _ = _cache_shard(c)
     t, n = c.shape[1], local.shape[1]
-    kl = _rows(k, c.device_mesh, row_axes(c.device_mesh, c.shape[0]))
+    kl = _rows(k, c.device_mesh, _cache_rows(c))
     if t < s:
         local.copy_(torch.roll(kl[:, s - t:], shifts=s % t, dims=1)[:, lo:lo + n])
         return
@@ -352,13 +363,12 @@ def _decode_placed(q, k_new, v_new, cache, slot, mask_of, pos, use_rope,
     attends over its own slots (``_attend_decode_shards``). ``k_new`` /
     ``v_new`` None: cross-attention over a cache written at prefill."""
     from repro_torch.distributed.hints import from_local
-    from repro_torch.distributed.sharding import row_axes
 
     kc, lo, axis = _cache_shard(cache["k"])
     vc = cache["v"].to_local()
     mesh = cache["k"].device_mesh
     b = q.shape[0]
-    bax = row_axes(mesh, b)
+    bax = _cache_rows(cache["k"])
     ql = _rows(q, mesh, bax)
     dev = kc.device
     if use_rope:

@@ -10,9 +10,10 @@ a pickle of ``repro``'s mistral-nemo-12b ``reduced()`` train state as
 numpy (``state_arrays``); ``OUT`` a directory for the CLI's checkpoints.
 World 2 runs its cases on ``(1, 2)`` ``("data", "model")``, world 4 on
 ``(2, 2)``, plus the multi-pod, elastic and anchor cases, the head
-split on ``(1, 4)``, microbatches finer than a data shard's rows and
-the MoE's gradients on placed state; world 2 also serves on placed
-state. Each rank
+split on ``(1, 4)``, microbatches finer than a data shard's rows, the
+MoE's gradients on placed state and serving on ``(2, 2, 1)`` with a
+batch that ``pod * data`` does not divide; world 2 also serves on
+placed state. Each rank
 prints one ``RESULT <json>`` line.
 """
 from __future__ import annotations
@@ -374,7 +375,10 @@ def serve_case(mesh, fsdp_names=(MISTRAL,)) -> dict:
     of each family, against the one-device run from the same weights:
     each step's logits, the largest gap over the largest logit; and
     whether the placed cache kept its tensors and placements. Archs in
-    ``fsdp_names`` also run with ``fsdp_shard=False``."""
+    ``fsdp_names`` also run with ``fsdp_shard=False``. On ``(2, 2, 1)``
+    ``("pod", "data", "model")`` the batch of 2 divides ``"data"`` but
+    not ``pod * data``: the activations' rows split over ``"data"``
+    while the caches hold every row on each rank."""
     import torch
 
     from repro_torch.distributed import hints
@@ -593,6 +597,7 @@ def moe_grads_case(mesh) -> dict:
 def main() -> None:
     import torch
     import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.launch.mesh import make_local_mesh
 
@@ -612,6 +617,8 @@ def main() -> None:
         out["anchors"] = anchors_case(mesh)
         out["multipod"] = multipod_case(rank)
         out["elastic"] = elastic_case(mesh, arrays)
+        out["serve_pods"] = serve_case(init_device_mesh(
+            "cpu", (2, 2, 1), mesh_dim_names=("pod", "data", "model")), ())
     else:
         out["serve"] = serve_case(mesh)
         out["cli"] = cli_case(out_dir, rank)

@@ -14,7 +14,10 @@ backend, on the CPU.
 * FLOPs: on a mesh of one the reduced mistral train step's dot FLOPs are
   ``repro``'s ``analyze_hlo`` count of the same step lowered by
   ``jax.jit``; on ``(2, 2)``, where every dimension divides, each rank
-  does a quarter of them.
+  does a quarter of them. The reduced llama with 4 microbatches on
+  ``(2, 2, 2)`` (fewer rows a data shard than microbatches: the train
+  step's finer path, rows split over ``"data"`` and whole over
+  ``"pod"``) counts the per-rank FLOPs of ``(2, 2)``.
 * One full-config cell on the production mesh: llama3.2-3b decode_32k
   (24 heads on a 16-way model axis), with ``repro``'s cache bytes.
 * The search cell on a fake group of 4: rank 0's rounds, its collectives
@@ -86,6 +89,23 @@ def _port_flops(world: int, shape: tuple) -> float:
         res = dryrun.trace_step(build(ARCHS["mistral-nemo-12b"].reduced()),
                                 TRAIN, mesh)
     return res["hlo_stats"]["dot_flops"]
+
+
+def test_finer_microbatches_on_the_pod_axis_split_their_rows():
+    """Each microbatch of 2 rows lies split over ``"data"`` and whole over
+    ``"pod"``; the embedding lookup and the attention core must take each
+    rank's own row (``sharding.row_axes``), not the whole microbatch, so
+    a rank does the work of one ``(2, 2)`` rank (the pod axis holds the
+    same rows twice)."""
+    cfg = dataclasses.replace(ARCHS["llama3.2-3b"].reduced(),
+                              num_microbatches=4)
+    flops = {}
+    for mesh_shape in ((2, 2, 2), (2, 2)):
+        with dryrun.world_mesh(len(mesh_shape) == 3, mesh_shape,
+                               "cpu") as mesh:
+            res = dryrun.trace_step(build(cfg), TRAIN, mesh)
+        flops[mesh_shape] = res["hlo_stats"]["dot_flops"]
+    assert flops[(2, 2, 2)] == flops[(2, 2)] > 0
 
 
 def test_sequence_gather_and_tied_table_placements():

@@ -29,7 +29,9 @@ both started at once:
   parameter's gradient within 1e-5 of one device;
 * serving on placed state (world 2): prefill and decode over placed
   parameters and caches for one arch of each family, logits within 1e-5
-  of their largest against one device.
+  of their largest against one device; in the world of 4 again on
+  ``(2, 2, 1)`` ``("pod", "data", "model")`` with a batch of 2, which
+  ``"data"`` divides and ``pod * data`` does not.
 """
 import json
 import math
@@ -299,3 +301,21 @@ def test_serving_on_placed_state(spawned, name):
         assert res["cache_rel"] <= RTOL, (key, res)
         assert res["in_place"], key
         assert res["steps"] >= cases.SERVE_STEPS
+
+
+@pytest.mark.parametrize("name", cases.SERVE_ARCHS)
+def test_serving_on_a_multipod_mesh(spawned, name):
+    """As ``test_serving_on_placed_state`` on ``(2, 2, 1)`` ``("pod",
+    "data", "model")`` with a batch of 2: the activations' rows split over
+    ``"data"`` alone, the caches (``spec_for_cache``) whole over both
+    batch axes, and each cache write and decode step takes the rows of
+    the cache's own layout."""
+    for rank in spawned[4]:
+        runs = {k: v for k, v in rank["serve_pods"].items()
+                if k.startswith(name + "/")}
+        assert runs
+        for key, res in runs.items():
+            assert res["rel"] <= RTOL, (key, res)
+            assert res["cache_rel"] <= RTOL, (key, res)
+            assert res["in_place"], key
+            assert res["steps"] >= cases.SERVE_STEPS

@@ -3,9 +3,13 @@ can reach: the choice of columns a thread, the plain round at band widths
 that reach each instantiation of the row, and the property the persistent
 sweep's incumbent re-read rests on.
 
-The CUDA kernels hold a lane's band in one warp's registers, ``CPT``
-columns a thread (``kernels/ops.py::cols_per_thread``; ``csrc/dtw_band.cuh``)
-and are held against the plain versions on the card by ``chip_smoke.py``.
+Up to 1,024 columns the CUDA kernels hold a lane's band in one warp's
+registers, ``CPT`` columns a thread (``kernels/ops.py::cols_per_thread``;
+``csrc/dtw_band.cuh``); wider bands run the wide layout, a thread block of
+8 warps a lane with the previous DP row in shared memory
+(``kernels/ops.py::band_layout``; ``csrc/dtw_band_wide.cuh``;
+``tests/test_torch_wide_band.py``). Both are held against the plain
+versions on the card by ``chip_smoke.py``.
 Here the plain round meets ``repro``'s ``_dtw_ea_fused_kernel`` in
 interpret mode at l = 1024, fed the same float32 stats and envelopes.
 
