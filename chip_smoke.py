@@ -7,7 +7,10 @@ Drives ``repro_torch`` (never JAX, never ``repro``) on ``cuda:0``:
 
   1. the card: its name, and its power limit from ``nvidia-smi``;
   2. build: every CUDA kernel from ``src/repro_torch/kernels/csrc``, with
-     ``nvcc``, in parallel;
+     ``nvcc``, in parallel; ptxas's registers; and for each band of
+     ``WIDE_BANDS`` each wide kernel's registers, shared memory a block,
+     blocks an SM (the occupancy query, which must be the model the CPU
+     tests pin) and whether its window is staged in shared memory;
   3. each kernel against its plain PyTorch version on the card, at the main
      path's shapes (N = 1e6 ECG reference, 8 queries of l = 1024, w = 102):
      kernel B over every window; kernel A over the lane sets and ``ub``s of
@@ -159,7 +162,8 @@ Drives ``repro_torch`` (never JAX, never ``repro``) on ``cuda:0``:
      flight and run per query, and the host-rounds wall per round less
      kernel A's time; then A, D (a round), C and E (the cold sweep) on the
      wide row at the phase-3 bands ("phase 6 wide"), beside their plain
-     versions' times and their bounds;
+     versions' times and their bounds, with the share of the bound and
+     cells a second;
   7. LM serving ("phase 7 lm serve"), which launches none of the five
      kernels (the launch counts are set to 0 before each arm and read
      after it): (a) Llama-3.2-3B at full width (28 layers, d 3072, 24 / 8
@@ -702,14 +706,57 @@ def phase_build() -> None:
                                 ("D", "dtw_ea_slab", "dtw_ea_slab_kernel")):
         say(f"  kernel {label} registers a thread (ptxas), counter-free and "
             f"with counters: {round_registers(name, kernel)}")
-    # the wide row's kernels have one bool: counters (A, D) or fused (C/E)
+    # the wide row's kernels have two bools: counters (A, D) or fused
+    # (C/E), and the window staged in shared memory
+    wide_regs = {}
     for name, kernel, names in (
             ("dtw_ea_fused", "dtw_ea_fused_wide_kernel", ("A", "A info")),
             ("dtw_ea_slab", "dtw_ea_slab_wide_kernel", ("D", "D info")),
             ("dtw_ea_persistent", "persistent_sweep_wide", ("E", "C"))):
-        regs = registers(name, kernel, lambda b, n=names: n[b == "1"],
-                         args=r"ILb([01])E")
+        regs = registers(
+            name, kernel,
+            lambda b, st, n=names: n[b == "1"] + (" staged" if st == "1"
+                                                  else ""),
+            args=r"ILb([01])ELb([01])E")
+        wide_regs.update(regs or {})
         say(f"  wide row registers a thread (ptxas): {regs}")
+    wide_layouts(wide_regs)
+
+
+# The wide kernels as ops.wide_plan sizes them: (letter, library, variant).
+WIDE_KERNELS = (("A", "dtw_ea_fused", 0), ("A info", "dtw_ea_fused", 1),
+                ("D", "dtw_ea_slab", 0), ("D info", "dtw_ea_slab", 1),
+                ("C", "dtw_ea_persistent", 1), ("E", "dtw_ea_persistent", 0))
+
+
+def wide_layouts(regs: dict) -> None:
+    """For each band of ``WIDE_BANDS``, each wide kernel as its launches
+    run it: the window staged or not (``BandLayout.window_staged`` on the
+    blocks its registers allow), its registers (ptxas, ``regs``), shared
+    memory a block, and blocks resident an SM from the occupancy query,
+    which must be the model's (the least of the registers' blocks and
+    ``BandLayout.blocks_by_smem``) that the CPU tests pin the rule with."""
+    from repro_torch.configs.dtw_search import SearchConfig
+    from repro_torch.kernels import ops
+
+    for length, ratio, nq, _, _ in WIDE_BANDS:
+        plan = SearchConfig(ref_len=WIDE_REF_N, query_len=length,
+                            window_ratio=ratio, n_queries=nq).make_plan()
+        m = plan.length
+        bw = ops.resolve_band(plan.window, m, m, plan.band_width)
+        layout = ops.band_layout(bw, m, True)
+        rows = []
+        for name, lib, variant in WIDE_KERNELS:
+            wp = ops.wide_plan(layout, lib, variant, bw, m, True)
+            model = min(wp.reg_blocks, layout.blocks_by_smem(wp.smem))
+            reg = regs.get(name + (" staged" if wp.staged else ""))
+            rows.append(f"{name}: {reg} registers, staged {wp.staged}, "
+                        f"{wp.smem} B a block, {wp.per_sm} blocks an SM "
+                        f"(registers {wp.reg_blocks}, model {model})")
+            check(wp.per_sm == model,
+                  f"l={m} bw={bw} {name}: {wp.per_sm} blocks an SM, the "
+                  f"model {model}")
+        say(f"  wide row at l={m} bw={bw}: " + "; ".join(rows))
 
 
 def main_path_inputs(torch, cfg, dev):
@@ -1675,11 +1722,13 @@ def phase_times_wide(torch, kw: dict, wide: dict) -> dict:
                 "plain_ms": plain, "plain_lanes": b["plain_lanes"],
                 "bound_ms": bound, "bound_by": bound_by(cells, bound),
                 "cells": cells})
+            out[name][-1]["cells_per_s"] = cells / ms[name] * 1e3
             say(f"[6 times wide] kernel {name} {b['tag']} use_cb=True: "
                 f"{ms[name]:.3f} ms (plain {plain:.1f} ms over "
                 f"{b['plain_lanes']} lanes), bound "
                 f"{bound:.4f} ms ({cells} cells, {bound_by(cells, bound)}), "
-                f"{100 * bound / ms[name]:.2f}% of the bound")
+                f"{100 * bound / ms[name]:.2f}% of the bound, "
+                f"{cells / ms[name] * 1e3:.4g} cells a second")
     for rounds in ("host", "persistent"):
         r = wide[rounds]
         say(f"[6 times wide] search {rounds}: {r['wall_s']:.3f} s wall, "

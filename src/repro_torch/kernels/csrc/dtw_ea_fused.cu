@@ -48,8 +48,11 @@
 // run dtw_band_wide.cuh's row instead: a thread block of 8 warps a lane,
 // the previous row in shared memory, a grid of as many blocks as stay
 // resident walking the lanes in turn. Each block first normalizes its
-// lane's window into its slice of a device scratch (2m floats a block, the
-// wrapper's) and, when use_cb, builds the cb suffix beside it.
+// lane's window into shared memory beside the row (kStaged, where that
+// keeps the blocks its registers allow: kernels/ops.py::BandLayout.
+// window_staged), else into its slice of a device scratch, and, when
+// use_cb, builds the cb suffix into the scratch (the wrapper's: m floats a
+// block for each of the two it holds).
 #include "dtw_band.cuh"
 #include "dtw_band_wide.cuh"
 
@@ -134,20 +137,22 @@ int launch(const float* queries, const float* ref, const int* starts,
   return (int)cudaGetLastError();
 }
 
-template <bool kInfo>
+template <bool kInfo, bool kStaged>
 __global__ void __launch_bounds__(kWideThreads) dtw_ea_fused_wide_kernel(
     const float* __restrict__ queries, const float* __restrict__ ref,
     const int* __restrict__ starts, const float* __restrict__ mu,
     const float* __restrict__ sg, const float* __restrict__ ub,
     const float* __restrict__ upper, const float* __restrict__ lower,
     float* __restrict__ out, int* __restrict__ rows, int* __restrict__ cells,
-    float* scratch,  // (gridDim.x, 2, m): normalized window, cb suffix
+    float* scratch,  // (gridDim.x, per block): window (!kStaged), cb suffix
     long long lanes, int n_ref, int K, int n, int m, int window, int bw,
     int use_cb) {
   extern __shared__ float smem[];
   __shared__ WideShared sh;
-  float* xs = scratch + (size_t)blockIdx.x * 2 * m;
-  float* cbs = use_cb ? xs + m : nullptr;
+  const size_t per_block = (size_t)((kStaged ? 0 : m) + (use_cb ? m : 0));
+  float* own = scratch + (size_t)blockIdx.x * per_block;
+  float* xs = kStaged ? smem + wide_row_words(bw) : own;
+  float* cbs = use_cb ? own + (kStaged ? 0 : m) : nullptr;
   for (long long lane = blockIdx.x; lane < lanes; lane += gridDim.x) {
     const int q = (int)(lane / K);
     const int start = starts[lane];
@@ -161,13 +166,14 @@ __global__ void __launch_bounds__(kWideThreads) dtw_ea_fused_wide_kernel(
       }
       continue;
     }
-    __syncthreads();  // the previous lane has read the scratch
+    __syncthreads();  // the previous lane has read the window and scratch
     const RefWindow win{ref + start, mu[lane], sg[lane], m};
-    wide_stage(win, xs, upper + (size_t)q * m, lower + (size_t)q * m, cbs, m);
+    wide_stage<kStaged>(win, xs, upper + (size_t)q * m, lower + (size_t)q * m,
+                        cbs, m);
     Counts c;
     const float d = wide_lane<false, kInfo>(
-        queries + (size_t)q * n, WideWindow{xs}, cbs, ubv, nullptr, n, m,
-        window, bw, smem, sh, &c);
+        queries + (size_t)q * n, WideWindow<kStaged>{xs}, cbs, ubv, nullptr,
+        n, m, window, bw, smem, sh, &c);
     if (threadIdx.x == 0) {
       out[lane] = d;
       if constexpr (kInfo) write_counts(rows, cells, lane, c);
@@ -175,47 +181,71 @@ __global__ void __launch_bounds__(kWideThreads) dtw_ea_fused_wide_kernel(
   }
 }
 
-template <bool kInfo>
-cudaError_t wide_grid(int bw, long long* blocks) {
-  return wide_resident_blocks(dtw_ea_fused_wide_kernel<kInfo>,
-                              (size_t)bw * sizeof(float), blocks);
+template <bool kInfo, bool kStaged>
+int wide_launch(const float* queries, const float* ref, const int* starts,
+                const float* mu, const float* sg, const float* ub,
+                const float* upper, const float* lower, float* out, int* rows,
+                int* cells, float* scratch, long long blocks, int n_ref,
+                long long lanes, int K, int n, int m, int window, int bw,
+                int use_cb, cudaStream_t stream) {
+  const size_t smem = wide_smem_bytes(bw, m, kStaged);
+  const auto kernel = dtw_ea_fused_wide_kernel<kInfo, kStaged>;
+  cudaError_t err = wide_smem_limit(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)blocks, kWideThreads, smem, stream>>>(
+      queries, ref, starts, mu, sg, ub, upper, lower, out, rows, cells,
+      scratch, lanes, n_ref, K, n, m, window, bw, use_cb);
+  return (int)cudaGetLastError();
+}
+
+template <bool kInfo, bool kStaged>
+cudaError_t wide_blocks(int bw, int m, int* per_sm) {
+  return wide_blocks_per_sm(dtw_ea_fused_wide_kernel<kInfo, kStaged>,
+                            bw > 0 ? wide_smem_bytes(bw, m, kStaged) : 0,
+                            per_sm);
 }
 
 }  // namespace
 
-// The thread blocks of a wide launch (bw > 1024) resident at once: the
-// grid, and the blocks the scratch must hold (at most the lanes).
-extern "C" int dtw_ea_fused_grid(int bw, int info, long long* blocks) {
-  return (int)(info ? wide_grid<true>(bw, blocks)
-                    : wide_grid<false>(bw, blocks));
+// The wide kernel's thread blocks resident on one SM (counters `info`,
+// the window `staged`) with the dynamic shared memory of a band of bw
+// columns and windows of m, or with none where bw == 0 (the blocks its
+// registers allow).
+extern "C" int dtw_ea_fused_wide_blocks(int info, int staged, int bw, int m,
+                                        int* per_sm) {
+  const auto query = info ? (staged ? wide_blocks<true, true>
+                                    : wide_blocks<true, false>)
+                          : (staged ? wide_blocks<false, true>
+                                    : wide_blocks<false, false>);
+  return (int)query(bw, m, per_sm);
 }
 
 // rows and cells: (Q * K,) int32 counters, or both null for the
 // counter-free kernel. warps == 1: the one-warp row with `cpt` columns a
 // thread; warps == 8 (cpt == 8): the wide row, its grid `blocks` thread
-// blocks and `scratch` 2 * m floats for each of them.
+// blocks, the window in shared memory where `staged`, and `scratch` m
+// floats for each block when use_cb and m more when not staged.
 extern "C" int dtw_ea_fused_launch(
     const float* queries, const float* ref, const int* starts, const float* mu,
     const float* sg, const float* ub, const float* upper, const float* lower,
     float* out, int* rows, int* cells, float* scratch, long long blocks,
     int n_ref, int n_queries, int K, int n, int m, int window, int bw,
-    int use_cb, int warps, int cpt, void* stream) {
+    int use_cb, int warps, int cpt, int staged, void* stream) {
   const long long lanes = (long long)n_queries * K;
   const cudaStream_t s = (cudaStream_t)stream;
   if (warps != 1) {
     if (warps != kWideWarps || cpt != kWideCpt || bw < 1 || bw > m ||
-        blocks < 1 || scratch == nullptr) {
+        blocks < 1 || (scratch == nullptr && (use_cb || !staged))) {
       return (int)cudaErrorInvalidValue;
     }
-    const size_t smem = (size_t)bw * sizeof(float);
-    const auto kernel = rows != nullptr ? dtw_ea_fused_wide_kernel<true>
-                                        : dtw_ea_fused_wide_kernel<false>;
-    cudaError_t err = wide_smem_limit(kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<(unsigned)blocks, kWideThreads, smem, s>>>(
-        queries, ref, starts, mu, sg, ub, upper, lower, out, rows, cells,
-        scratch, lanes, n_ref, K, n, m, window, bw, use_cb);
-    return (int)cudaGetLastError();
+    const auto launch_wide = rows != nullptr
+                                 ? (staged ? wide_launch<true, true>
+                                           : wide_launch<true, false>)
+                                 : (staged ? wide_launch<false, true>
+                                           : wide_launch<false, false>);
+    return launch_wide(queries, ref, starts, mu, sg, ub, upper, lower, out,
+                       rows, cells, scratch, blocks, n_ref, lanes, K, n, m,
+                       window, bw, use_cb, s);
   }
   if (bw < 1 || bw > 32 * cpt) return (int)cudaErrorInvalidValue;
 #define DTW_A(C)                                                             \
@@ -235,6 +265,6 @@ extern "C" const char* dtw_ea_fused_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-extern "C" const char* dtw_ea_fused_grid_error_string(int code) {
+extern "C" const char* dtw_ea_fused_wide_blocks_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

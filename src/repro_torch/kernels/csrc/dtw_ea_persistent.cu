@@ -68,10 +68,14 @@
 //
 // Bands wider than 1024 columns run dtw_band_wide.cuh's row: a thread block
 // of 8 warps is one lane in flight, its thread 0 draws, gates and folds
-// for the block and broadcasts the lane through shared memory, and each
-// block keeps its lane's normalized window (C) and cb suffix in its slice
-// of a device scratch (2m floats a block, the wrapper's). The protocol is
-// the one above: the same gate, re-read period and 64-bit atomicMin fold.
+// for the block and broadcasts the lane through shared memory. Each block
+// stages its lane's normalized window (C) or slab row (E) in shared memory
+// beside the row where that keeps the blocks its registers allow
+// (kStaged, kernels/ops.py::BandLayout.window_staged); else C keeps the
+// window in its slice of a device scratch and E reads its slab row. The cb
+// suffix goes to the scratch too (the wrapper's: m floats a block for each
+// of the two it holds). The protocol is the one above: the same gate,
+// re-read period and 64-bit atomicMin fold.
 #include <stdint.h>
 
 #include "dtw_band.cuh"
@@ -198,19 +202,23 @@ __global__ void __launch_bounds__(kWarps * 32) persistent_sweep(
 }
 
 // The wide form of persistent_sweep: one lane a thread block.
-template <bool kFused>
+template <bool kFused, bool kStaged>
 __global__ void __launch_bounds__(kWideThreads) persistent_sweep_wide(
     const float* __restrict__ queries, const float* __restrict__ ref,
     const float* __restrict__ mu, const float* __restrict__ sg,
     const float* __restrict__ windows, const float* __restrict__ lb,
     const int* __restrict__ starts, const float* __restrict__ upper,
     const float* __restrict__ lower, u64* inc, int* state,
-    float* scratch,  // (gridDim.x, 2, m): C's normalized window, cb suffix
+    float* scratch,  // (gridDim.x, per block): C's window (!kStaged), cb
     int n_ref, int nq, int K, int n, int m, int window, int bw, int use_cb) {
   extern __shared__ float smem[];
   __shared__ WideShared sh;
-  float* xs = scratch + (size_t)blockIdx.x * 2 * m;
-  float* cbs = use_cb ? xs + m : nullptr;
+  constexpr bool kWindowScratch = kFused && !kStaged;
+  const size_t per_block =
+      (size_t)((kWindowScratch ? m : 0) + (use_cb ? m : 0));
+  float* own = scratch + (size_t)blockIdx.x * per_block;
+  float* xs = kStaged ? smem + wide_row_words(bw) : own;
+  float* cbs = use_cb ? own + (kWindowScratch ? m : 0) : nullptr;
   int q = (int)(blockIdx.x % nq);
   int idle = 0;  // queries in a row found done
   while (idle < nq) {
@@ -258,13 +266,15 @@ __global__ void __launch_bounds__(kWideThreads) persistent_sweep_wide(
     const long long l = (long long)qq * K + j;
     const float* uq = upper + (size_t)qq * m;
     const float* lq = lower + (size_t)qq * m;
-    WideWindow win{xs};
+    WideWindow<kStaged> win{xs};
     if (kFused) {
-      wide_stage(RefWindow{ref + starts[l], mu[l], sg[l], m}, xs, uq, lq,
-                 cbs, m);
+      wide_stage<kStaged>(RefWindow{ref + starts[l], mu[l], sg[l], m}, xs, uq,
+                          lq, cbs, m);
     } else {
-      win.x = windows + l * m;
-      wide_stage(SlabWindow{win.x, m}, nullptr, uq, lq, cbs, m);
+      const float* wrow = windows + l * m;
+      if (!kStaged) win.x = wrow;
+      wide_stage<kStaged>(SlabWindow{wrow, m}, kStaged ? xs : nullptr, uq, lq,
+                          cbs, m);
     }
     const float d = wide_lane<true, false>(queries + (size_t)qq * n, win, cbs,
                                            ubq, &inc[qq], n, m, window, bw,
@@ -317,11 +327,14 @@ cudaError_t resident_grid(int m, int use_cb, int* warps, size_t* smem,
   return cudaSuccess;
 }
 
-// The wide sweep's resident grid: blocks (one lane each) resident at once.
-template <bool kFused>
-cudaError_t wide_grid(int bw, long long* blocks) {
-  return wide_resident_blocks(persistent_sweep_wide<kFused>,
-                              (size_t)bw * sizeof(float), blocks);
+// The wide sweep's thread blocks (one lane each) resident on one SM, with
+// the dynamic shared memory of a band of bw columns and windows of m, or
+// none where bw == 0.
+template <bool kFused, bool kStaged>
+cudaError_t wide_blocks(int bw, int m, int* per_sm) {
+  return wide_blocks_per_sm(persistent_sweep_wide<kFused, kStaged>,
+                            bw > 0 ? wide_smem_bytes(bw, m, kStaged) : 0,
+                            per_sm);
 }
 
 // The init, bad-start count and finish passes around a sweep.
@@ -345,7 +358,7 @@ int launch_sweep(Sweep sweep, const float* ub_init, const int* starts,
   return (int)cudaGetLastError();
 }
 
-template <bool kFused>
+template <bool kFused, bool kStaged>
 int launch_wide(const float* queries, const float* ref, const float* mu,
                 const float* sg, const float* windows, const float* lb,
                 const int* starts, const float* ub_init, const float* upper,
@@ -354,13 +367,13 @@ int launch_wide(const float* queries, const float* ref, const float* mu,
                 long long grid, int n_ref, int nq, int K, int n, int m,
                 int window, int bw, int use_cb, int block_k,
                 cudaStream_t stream) {
-  const size_t smem = (size_t)bw * sizeof(float);
-  cudaError_t err = wide_smem_limit(persistent_sweep_wide<kFused>, smem);
+  const size_t smem = wide_smem_bytes(bw, m, kStaged);
+  const auto sweep = persistent_sweep_wide<kFused, kStaged>;
+  cudaError_t err = wide_smem_limit(sweep, smem);
   if (err != cudaSuccess) return (int)err;
   return launch_sweep<kFused>(
       [&] {
-        persistent_sweep_wide<kFused><<<(unsigned)grid, kWideThreads, smem,
-                                        stream>>>(
+        sweep<<<(unsigned)grid, kWideThreads, smem, stream>>>(
             queries, ref, mu, sg, windows, lb, starts, upper, lower, inc,
             state, scratch, n_ref, nq, K, n, m, window, bw, use_cb);
       },
@@ -396,34 +409,41 @@ int launch(const float* queries, const float* ref, const float* mu,
       K, m, block_k, stream);
 }
 
-bool wide_args_ok(int warps, int cpt, int bw, int m, long long grid,
-                  const float* scratch) {
+// A wide launch's arguments: C needs the scratch for its cb suffix and an
+// unstaged window, E for its cb suffix.
+bool wide_args_ok(bool fused, int warps, int cpt, int bw, int m,
+                  long long grid, const float* scratch, int use_cb,
+                  int staged) {
   return warps == kWideWarps && cpt == kWideCpt && bw >= 1 && bw <= m &&
-         grid >= 1 && scratch != nullptr;
+         grid >= 1 &&
+         (scratch != nullptr || !(use_cb || (fused && !staged)));
 }
 
 }  // namespace
 
 // Kernel C: lanes slice and normalize their windows out of `ref`. warps ==
 // 1: the one-warp row with `cpt` columns a thread; warps == 8 (cpt == 8):
-// the wide row on `grid` thread blocks (dtw_ea_persistent_grid) with
-// `scratch` 2 * m floats for each of them.
+// the wide row on `grid` thread blocks (dtw_ea_persistent_wide_blocks),
+// the window in shared memory where `staged`, and `scratch` m floats for
+// each block when use_cb and m more when not staged.
 extern "C" int dtw_ea_persistent_fused_launch(
     const float* queries, const float* ref, const float* lb, const int* starts,
     const float* mu, const float* sg, const float* ub_init, const float* upper,
     const float* lower, float* best_dist, int* best_start, int* blocks,
     void* inc, int* state, float* scratch, long long grid, int n_ref, int nq,
     int K, int n, int m, int window, int bw, int use_cb, int block_k,
-    int warps, int cpt, void* stream) {
+    int warps, int cpt, int staged, void* stream) {
   if (warps != 1) {
-    if (!wide_args_ok(warps, cpt, bw, m, grid, scratch)) {
+    if (!wide_args_ok(true, warps, cpt, bw, m, grid, scratch, use_cb,
+                      staged)) {
       return (int)cudaErrorInvalidValue;
     }
-    return launch_wide<true>(queries, ref, mu, sg, nullptr, lb, starts,
-                             ub_init, upper, lower, best_dist, best_start,
-                             blocks, (u64*)inc, state, scratch, grid, n_ref,
-                             nq, K, n, m, window, bw, use_cb, block_k,
-                             (cudaStream_t)stream);
+    const auto run = staged ? launch_wide<true, true>
+                            : launch_wide<true, false>;
+    return run(queries, ref, mu, sg, nullptr, lb, starts, ub_init, upper,
+                  lower, best_dist, best_start, blocks, (u64*)inc, state,
+                  scratch, grid, n_ref, nq, K, n, m, window, bw, use_cb,
+                  block_k, (cudaStream_t)stream);
   }
   if (bw < 1 || bw > 32 * cpt) return (int)cudaErrorInvalidValue;
 #define DTW_C(C)                                                             \
@@ -441,23 +461,25 @@ extern "C" int dtw_ea_persistent_fused_launch(
 }
 
 // Kernel E: lanes read their windows from the (Q, K, m) slab; warps, grid
-// and scratch as kernel C's.
+// and staged as kernel C's, `scratch` m floats for each block when use_cb.
 extern "C" int dtw_ea_persistent_launch(
     const float* queries, const float* windows, const float* lb,
     const int* starts, const float* ub_init, const float* upper,
     const float* lower, float* best_dist, int* best_start, int* blocks,
     void* inc, int* state, float* scratch, long long grid, int nq, int K,
     int n, int m, int window, int bw, int use_cb, int block_k, int warps,
-    int cpt, void* stream) {
+    int cpt, int staged, void* stream) {
   if (warps != 1) {
-    if (!wide_args_ok(warps, cpt, bw, m, grid, scratch)) {
+    if (!wide_args_ok(false, warps, cpt, bw, m, grid, scratch, use_cb,
+                      staged)) {
       return (int)cudaErrorInvalidValue;
     }
-    return launch_wide<false>(queries, nullptr, nullptr, nullptr, windows, lb,
-                              starts, ub_init, upper, lower, best_dist,
-                              best_start, blocks, (u64*)inc, state, scratch,
-                              grid, 0, nq, K, n, m, window, bw, use_cb,
-                              block_k, (cudaStream_t)stream);
+    const auto run = staged ? launch_wide<false, true>
+                            : launch_wide<false, false>;
+    return run(queries, nullptr, nullptr, nullptr, windows, lb, starts,
+                  ub_init, upper, lower, best_dist, best_start, blocks,
+                  (u64*)inc, state, scratch, grid, 0, nq, K, n, m, window, bw,
+                  use_cb, block_k, (cudaStream_t)stream);
   }
   if (bw < 1 || bw > 32 * cpt) return (int)cudaErrorInvalidValue;
 #define DTW_E(C)                                                             \
@@ -475,20 +497,24 @@ extern "C" int dtw_ea_persistent_launch(
 #undef DTW_E
 }
 
-// The lanes a launch of kernel C (`fused` != 0) or E keeps in flight before
-// it caps them at the lane count: warps (one-warp row, warps == 1) or
-// thread blocks (the wide row, warps == 8 at a band of bw columns), which
-// is also the grid of a wide launch and the blocks its scratch holds.
-extern "C" int dtw_ea_persistent_grid(int fused, int m, int bw, int use_cb,
-                                      int warps_a_lane, int cpt,
+// The wide sweep's thread blocks resident on one SM (kernel C where
+// `fused`, else E; the window `staged`) with the dynamic shared memory of a
+// band of bw columns and windows of m, or with none where bw == 0 (the
+// blocks its registers allow).
+extern "C" int dtw_ea_persistent_wide_blocks(int fused, int staged, int bw,
+                                             int m, int* per_sm) {
+  const auto query = fused ? (staged ? wide_blocks<true, true>
+                                     : wide_blocks<true, false>)
+                           : (staged ? wide_blocks<false, true>
+                                     : wide_blocks<false, false>);
+  return (int)query(bw, m, per_sm);
+}
+
+// The lanes a launch of kernel C (`fused` != 0) or E on the one-warp row,
+// `cpt` columns a thread, keeps in flight before it caps them at the lane
+// count: the warps of its resident thread blocks.
+extern "C" int dtw_ea_persistent_grid(int fused, int m, int use_cb, int cpt,
                                       long long* lanes) {
-  if (warps_a_lane != 1) {
-    if (warps_a_lane != kWideWarps || cpt != kWideCpt || bw < 1) {
-      return (int)cudaErrorInvalidValue;
-    }
-    return (int)(fused ? wide_grid<true>(bw, lanes)
-                       : wide_grid<false>(bw, lanes));
-  }
   int warps = 0;
   size_t smem = 0;
   long long grid = 0;
@@ -517,5 +543,9 @@ extern "C" const char* dtw_ea_persistent_error_string(int code) {
 }
 
 extern "C" const char* dtw_ea_persistent_grid_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+extern "C" const char* dtw_ea_persistent_wide_blocks_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

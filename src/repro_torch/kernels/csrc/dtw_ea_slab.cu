@@ -25,7 +25,9 @@
 // Bands wider than 1024 columns (full rows with m > 1024 among them) run
 // dtw_band_wide.cuh's row, as kernel A's do: a thread block of 8 warps a
 // lane, as many blocks as stay resident walking the lanes in turn, the
-// window and the cb suffix read from their slab rows (no scratch).
+// window copied from its slab row into shared memory beside the row where
+// kernel A stages its window (kStaged), else read from the slab row, and
+// the cb suffix read from its slab row (no scratch).
 #include "dtw_band.cuh"
 #include "dtw_band_wide.cuh"
 
@@ -96,7 +98,7 @@ int launch(const float* queries, const float* windows, const float* cbs,
   return (int)cudaGetLastError();
 }
 
-template <bool kInfo>
+template <bool kInfo, bool kStaged>
 __global__ void __launch_bounds__(kWideThreads) dtw_ea_slab_wide_kernel(
     const float* __restrict__ queries, const float* __restrict__ windows,
     const float* __restrict__ cbs, const float* __restrict__ ub,
@@ -104,6 +106,7 @@ __global__ void __launch_bounds__(kWideThreads) dtw_ea_slab_wide_kernel(
     long long lanes, int K, int n, int m, int window, int bw) {
   extern __shared__ float smem[];
   __shared__ WideShared sh;
+  float* xs = smem + wide_row_words(bw);  // kStaged: the lane's window
   for (long long lane = blockIdx.x; lane < lanes; lane += gridDim.x) {
     const int q = (int)(lane / K);
     const float ubv = ub[lane];
@@ -115,9 +118,15 @@ __global__ void __launch_bounds__(kWideThreads) dtw_ea_slab_wide_kernel(
       }
       continue;
     }
+    const float* wrow = windows + lane * m;
+    if constexpr (kStaged) {
+      __syncthreads();  // the previous lane has read the window
+      wide_stage<true>(SlabWindow{wrow, m}, xs, nullptr, nullptr, nullptr,
+                       m);
+    }
     Counts c;
     const float d = wide_lane<false, kInfo>(
-        queries + (size_t)q * n, WideWindow{windows + lane * m},
+        queries + (size_t)q * n, WideWindow<kStaged>{kStaged ? xs : wrow},
         cbs != nullptr ? cbs + lane * m : nullptr, ubv, nullptr, n, m, window,
         bw, smem, sh, &c);
     if (threadIdx.x == 0) {
@@ -127,30 +136,51 @@ __global__ void __launch_bounds__(kWideThreads) dtw_ea_slab_wide_kernel(
   }
 }
 
-template <bool kInfo>
-cudaError_t wide_grid(int bw, long long* blocks) {
-  return wide_resident_blocks(dtw_ea_slab_wide_kernel<kInfo>,
-                              (size_t)bw * sizeof(float), blocks);
+template <bool kInfo, bool kStaged>
+int wide_launch(const float* queries, const float* windows, const float* cbs,
+                const float* ub, float* out, int* rows, int* cells,
+                long long blocks, long long lanes, int K, int n, int m,
+                int window, int bw, cudaStream_t stream) {
+  const size_t smem = wide_smem_bytes(bw, m, kStaged);
+  const auto kernel = dtw_ea_slab_wide_kernel<kInfo, kStaged>;
+  cudaError_t err = wide_smem_limit(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)blocks, kWideThreads, smem, stream>>>(
+      queries, windows, cbs, ub, out, rows, cells, lanes, K, n, m, window,
+      bw);
+  return (int)cudaGetLastError();
+}
+
+template <bool kInfo, bool kStaged>
+cudaError_t wide_blocks(int bw, int m, int* per_sm) {
+  return wide_blocks_per_sm(dtw_ea_slab_wide_kernel<kInfo, kStaged>,
+                            bw > 0 ? wide_smem_bytes(bw, m, kStaged) : 0,
+                            per_sm);
 }
 
 }  // namespace
 
-// The thread blocks of a wide launch (bw > 1024) resident at once: its
-// grid, before the wrapper caps it at the lanes.
-extern "C" int dtw_ea_slab_grid(int bw, int info, long long* blocks) {
-  return (int)(info ? wide_grid<true>(bw, blocks)
-                    : wide_grid<false>(bw, blocks));
+// The wide kernel's thread blocks resident on one SM, as
+// dtw_ea_fused_wide_blocks counts them.
+extern "C" int dtw_ea_slab_wide_blocks(int info, int staged, int bw, int m,
+                                       int* per_sm) {
+  const auto query = info ? (staged ? wide_blocks<true, true>
+                                    : wide_blocks<true, false>)
+                          : (staged ? wide_blocks<false, true>
+                                    : wide_blocks<false, false>);
+  return (int)query(bw, m, per_sm);
 }
 
 // rows and cells: (Q * K,) int32 counters, or both null for the
 // counter-free kernel. warps == 1: the one-warp row with `cpt` columns a
 // thread; warps == 8 (cpt == 8): the wide row on a grid of `blocks` thread
-// blocks (dtw_ea_slab_grid).
+// blocks (dtw_ea_slab_wide_blocks), the window copied into shared memory
+// where `staged`.
 extern "C" int dtw_ea_slab_launch(
     const float* queries, const float* windows, const float* cbs,
     const float* ub, float* out, int* rows, int* cells, long long blocks,
     int n_queries, int K, int n, int m, int window, int bw, int warps,
-    int cpt, void* stream) {
+    int cpt, int staged, void* stream) {
   const long long lanes = (long long)n_queries * K;
   const cudaStream_t s = (cudaStream_t)stream;
   if (warps != 1) {
@@ -158,15 +188,13 @@ extern "C" int dtw_ea_slab_launch(
         blocks < 1) {
       return (int)cudaErrorInvalidValue;
     }
-    const size_t smem = (size_t)bw * sizeof(float);
-    const auto kernel = rows != nullptr ? dtw_ea_slab_wide_kernel<true>
-                                        : dtw_ea_slab_wide_kernel<false>;
-    cudaError_t err = wide_smem_limit(kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<(unsigned)blocks, kWideThreads, smem, s>>>(
-        queries, windows, cbs, ub, out, rows, cells, lanes, K, n, m, window,
-        bw);
-    return (int)cudaGetLastError();
+    const auto launch_wide = rows != nullptr
+                                 ? (staged ? wide_launch<true, true>
+                                           : wide_launch<true, false>)
+                                 : (staged ? wide_launch<false, true>
+                                           : wide_launch<false, false>);
+    return launch_wide(queries, windows, cbs, ub, out, rows, cells, blocks,
+                       lanes, K, n, m, window, bw, s);
   }
   if (bw < 1 || bw > 32 * cpt) return (int)cudaErrorInvalidValue;
 #define DTW_D(C)                                                             \
@@ -181,7 +209,7 @@ extern "C" int dtw_ea_slab_launch(
 #undef DTW_D
 }
 
-extern "C" const char* dtw_ea_slab_grid_error_string(int code) {
+extern "C" const char* dtw_ea_slab_wide_blocks_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 

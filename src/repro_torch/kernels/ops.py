@@ -64,18 +64,25 @@ MAX_BAND_WIDTH = 1024
 # The wide DP row (csrc/dtw_band_wide.cuh), for bands past MAX_BAND_WIDTH:
 # a thread block of WIDE_WARPS warps per lane, WIDE_CPT columns a thread in
 # registers for each segment of WIDE_SEGMENT columns a row walks, and the
-# previous row (bw floats) in dynamic shared memory beside at most
-# WIDE_STATIC_SMEM bytes of static shared memory (its WideShared). A block
-# may hold BLOCK_SMEM_MAX bytes of shared memory on an H100, so the wide row
+# previous row (bw floats, rounded up to WIDE_CPT) in dynamic shared memory
+# beside at most WIDE_STATIC_SMEM bytes of static shared memory (its
+# WideShared), and, where the window is staged (BandLayout.window_staged),
+# the lane's window of m floats plus one padding word every 32. A block may
+# hold BLOCK_SMEM_MAX bytes of shared memory on an H100, so the wide row
 # takes bands up to WIDE_MAX_BAND (58,048) columns, twice the longest query
-# kernel B takes. chip_smoke.py's build phase prints the wide kernels'
-# registers a thread (ptxas).
+# kernel B takes. An SM holds SM_SMEM bytes of shared memory, of which each
+# resident block also takes BLOCK_RESERVED_SMEM, and SM_THREADS threads.
+# chip_smoke.py's build phase prints the wide kernels' registers a thread
+# (ptxas) and, for each band it runs, their blocks an SM and shared memory.
 WIDE_WARPS = 8
 WIDE_CPT = 8
 WIDE_SEGMENT = 32 * WIDE_WARPS * WIDE_CPT
 WIDE_STATIC_SMEM = 256
 BLOCK_SMEM_MAX = 227 * 1024
 WIDE_MAX_BAND = (BLOCK_SMEM_MAX - WIDE_STATIC_SMEM) // 4
+SM_SMEM = 228 * 1024
+BLOCK_RESERVED_SMEM = 1024
+SM_THREADS = 2048
 
 # Kernel B's tiling (csrc/lb_keogh.cu): a block holds LB_WINDOWS windows and
 # one tile of q_tile queries, whose envelopes and reference span sit in
@@ -175,14 +182,40 @@ class BandLayout(NamedTuple):
         ``"shared"`` (the wide row)."""
         return "registers" if self.warps == 1 else "shared"
 
-    def smem_bytes(self, bw: int, length: int, use_cb: bool) -> int:
+    def smem_bytes(self, bw: int, length: int, use_cb: bool,
+                   staged: bool = False) -> int:
         """Shared memory of a thread block that runs one lane: the one-warp
         row's cb slice (``length`` floats, when ``use_cb``; its kernels put
-        up to 4 lanes in a block where their slices fit), the wide row's
-        previous row and static part (its cb lies in global memory)."""
+        up to 4 lanes in a block where their slices fit); the wide row's
+        previous row (``bw`` rounded up to ``WIDE_CPT``), its window where
+        ``staged`` (``window_word``'s ``length + length // 32`` floats) and
+        its static part (its cb lies in global memory).
+        ``wide_smem_bytes`` in csrc/dtw_band_wide.cuh counts the same."""
         if self.tier == "registers":
             return 4 * int(length) if use_cb else 0
-        return 4 * int(bw) + WIDE_STATIC_SMEM
+        length = int(length)
+        row = -(-int(bw) // WIDE_CPT) * WIDE_CPT
+        window = length + (length >> 5) if staged else 0
+        return 4 * (row + window) + WIDE_STATIC_SMEM
+
+    def blocks_by_smem(self, nbytes: int) -> int:
+        """Thread blocks of this layout that an SM holds by their shared
+        memory (``nbytes`` each) and threads alone."""
+        return min(SM_THREADS // (32 * self.warps),
+                   SM_SMEM // (int(nbytes) + BLOCK_RESERVED_SMEM))
+
+    def window_staged(self, bw: int, length: int, reg_blocks: int) -> bool:
+        """Whether the wide row stages a lane's window in shared memory: the
+        one rule, where the staged block still leaves ``reg_blocks`` blocks
+        on an SM, the most the kernel's registers allow (the occupancy
+        query with no dynamic shared memory). At l = 2048 (bw = 2048) and
+        l = 8192 (bw = 1664) it stages; at l = 16,384 (bw = 16,384) the
+        row's 64 KB and the window's 66 KB would leave 1 block, not 2 or 3,
+        and the window stays in global memory. Never on the one-warp row."""
+        if self.tier == "registers":
+            return False
+        return self.blocks_by_smem(
+            self.smem_bytes(bw, length, False, staged=True)) >= reg_blocks
 
 
 def band_layout(bw: int, length: int | None = None,
@@ -345,10 +378,11 @@ def dtw_ea_multi_fused(
     out, counts = _round_outputs(nq, k, dev, with_info)
     if nq * k == 0:
         return (out, *counts) if with_info else out
-    scratch, blocks = _wide_launch(layout, "dtw_ea_fused",
-                                   (bw, int(with_info)), m, nq * k, dev)
+    scratch, blocks, staged = _wide_launch(
+        layout, "dtw_ea_fused", int(with_info), bw, m, use_cb, nq * k, dev,
+        window_scratch=True, cb_scratch=True)
     launch, err = _lib("dtw_ea_fused", "dtw_ea_fused_launch",
-                       [_P] * 12 + [_LL] + [_I] * 10 + [_P])
+                       [_P] * 12 + [_LL] + [_I] * 11 + [_P])
     code = launch(
         queries.data_ptr(), ref.data_ptr(), starts.data_ptr(), mu.data_ptr(),
         sg.data_ptr(), ub.data_ptr(),
@@ -356,7 +390,7 @@ def dtw_ea_multi_fused(
         out.data_ptr(), *_ptrs(counts),
         None if scratch is None else scratch.data_ptr(), blocks,
         ref.shape[0], nq, k, n, m, window, bw, int(use_cb), layout.warps,
-        layout.cols_per_thread, _stream(dev),
+        layout.cols_per_thread, int(staged), _stream(dev),
     )
     _raise_on(code, err, "dtw_ea_fused")
     dtw_ea_multi_fused.launches += 1
@@ -525,15 +559,15 @@ def dtw_ea_multi(
     out, counts = _round_outputs(nq, k, dev, with_info)
     if nq * k == 0:
         return (out, *counts) if with_info else out
-    _, blocks = _wide_launch(layout, "dtw_ea_slab", (bw, int(with_info)), m,
-                             nq * k, dev, scratch=False)
+    _, blocks, staged = _wide_launch(layout, "dtw_ea_slab", int(with_info),
+                                     bw, m, cb is not None, nq * k, dev)
     launch, err = _lib("dtw_ea_slab", "dtw_ea_slab_launch",
-                       [_P] * 7 + [_LL] + [_I] * 8 + [_P])
+                       [_P] * 7 + [_LL] + [_I] * 9 + [_P])
     code = launch(
         queries.data_ptr(), candidates.data_ptr(),
         None if cb is None else cb.data_ptr(), ub_l.data_ptr(),
         out.data_ptr(), *_ptrs(counts), blocks, nq, k, n, m, window, bw,
-        layout.warps, layout.cols_per_thread, _stream(dev),
+        layout.warps, layout.cols_per_thread, int(staged), _stream(dev),
     )
     _raise_on(code, err, "dtw_ea_slab")
     dtw_ea_multi.launches += 1
@@ -674,11 +708,11 @@ def dtw_ea_persistent(
     if nq * k == 0:
         return seeds.clone(), best.fill_(-1), blocks.zero_()
     inc, state = _persistent_state(nq, dev)
-    scratch, grid = _wide_launch(layout, "dtw_ea_persistent",
-                                 _grid_args(False, m, bw, use_cb, layout),
-                                 m, nq * k, dev)
+    scratch, grid, staged = _wide_launch(layout, "dtw_ea_persistent", 0, bw,
+                                         m, use_cb, nq * k, dev,
+                                         cb_scratch=True)
     launch, err = _lib("dtw_ea_persistent", "dtw_ea_persistent_launch",
-                       [_P] * 13 + [_LL] + [_I] * 10 + [_P])
+                       [_P] * 13 + [_LL] + [_I] * 11 + [_P])
     code = launch(
         queries.data_ptr(), candidates.data_ptr(), lb.data_ptr(),
         starts.data_ptr(), seeds.data_ptr(),
@@ -686,7 +720,7 @@ def dtw_ea_persistent(
         dist.data_ptr(), best.data_ptr(), blocks.data_ptr(), inc.data_ptr(),
         state.data_ptr(), None if scratch is None else scratch.data_ptr(),
         grid, nq, k, n, m, window, bw, int(use_cb), block_k, layout.warps,
-        layout.cols_per_thread, _stream(dev),
+        layout.cols_per_thread, int(staged), _stream(dev),
     )
     _raise_on(code, err, "dtw_ea_persistent")
     dtw_ea_persistent.launches += 1
@@ -760,12 +794,12 @@ def dtw_ea_persistent_fused(
         if nq * k == 0:
             return seeds.clone(), best.fill_(-1), blocks.zero_()
         inc, state = _persistent_state(nq, dev)
-        scratch, grid = _wide_launch(layout, "dtw_ea_persistent",
-                                     _grid_args(True, m, bw, use_cb, layout),
-                                     m, nq * k, dev)
+        scratch, grid, staged = _wide_launch(
+            layout, "dtw_ea_persistent", 1, bw, m, use_cb, nq * k, dev,
+            window_scratch=True, cb_scratch=True)
         launch, err = _lib("dtw_ea_persistent",
                            "dtw_ea_persistent_fused_launch",
-                           [_P] * 15 + [_LL] + [_I] * 11 + [_P])
+                           [_P] * 15 + [_LL] + [_I] * 12 + [_P])
         code = launch(
             queries.data_ptr(), ref.data_ptr(), lb.data_ptr(),
             starts.data_ptr(), mu.data_ptr(), sg.data_ptr(), seeds.data_ptr(),
@@ -775,7 +809,7 @@ def dtw_ea_persistent_fused(
             inc.data_ptr(), state.data_ptr(),
             None if scratch is None else scratch.data_ptr(), grid,
             ref.shape[0], nq, k, n, m, window, bw, int(use_cb), block_k,
-            layout.warps, layout.cols_per_thread, _stream(dev),
+            layout.warps, layout.cols_per_thread, int(staged), _stream(dev),
         )
         _raise_on(code, err, "dtw_ea_persistent_fused")
         dtw_ea_persistent_fused.launches += 1
@@ -805,40 +839,88 @@ def persistent_grid(length: int, band_width: int, use_cb: bool,
     sizes each launch's grid (a launch takes fewer when it has fewer
     lanes). Launches nothing."""
     layout = band_layout(band_width, length, use_cb)
+    if layout.tier == "shared":
+        return wide_plan(layout, "dtw_ea_persistent", int(fused), band_width,
+                         length, use_cb).blocks
     return _resident("dtw_ea_persistent",
-                     _grid_args(fused, length, band_width, use_cb, layout),
+                     (int(fused), int(length), int(use_cb),
+                      layout.cols_per_thread),
                      torch.cuda.current_device())
-
-
-def _grid_args(fused: bool, m: int, bw: int, use_cb: bool,
-               layout: BandLayout) -> tuple:
-    """``dtw_ea_persistent_grid``'s arguments."""
-    return (int(fused), int(m), int(bw), int(use_cb), layout.warps,
-            layout.cols_per_thread)
 
 
 @functools.lru_cache(maxsize=None)
 def _resident(lib: str, args: tuple, device: int) -> int:
     """``lib``'s ``<lib>_grid(*args, &lanes)`` on card ``device``: the lanes
-    (one-warp row) or thread blocks (wide row) its kernel keeps resident,
-    from the occupancy query, asked once for each kernel, band and card."""
+    its one-warp kernel keeps resident, from the occupancy query, asked
+    once for each kernel, window length, cb setting and card."""
     query, err = _lib(lib, f"{lib}_grid", [_I] * len(args) + [_P])
     lanes = ctypes.c_longlong(0)
     _raise_on(query(*args, ctypes.addressof(lanes)), err, f"{lib}_grid")
     return lanes.value
 
 
-def _wide_launch(layout: BandLayout, lib: str, args: tuple, m: int,
-                 lanes: int, dev, scratch: bool = True):
-    """A wide launch's ``(scratch, grid)``, the one sizing step of kernels
-    A, C, D and E: its grid of resident thread blocks (``_resident``), at
-    most one a lane, and, where the kernel builds a lane's window and cb
-    suffix (A, C, E; ``scratch``), 2m floats of scratch for each block,
-    from torch's caching allocator. ``(None, 0)`` on the one-warp row,
-    whose launches size their own grids."""
+@functools.lru_cache(maxsize=None)
+def _wide_blocks(lib: str, variant: int, staged: bool, bw: int, m: int,
+                 device: int) -> int:
+    """``<lib>_wide_blocks``: the thread blocks of ``lib``'s wide kernel
+    (``variant``: counters for A and D, fused for C/E; the window
+    ``staged`` or not) resident on one SM of card ``device``, with the
+    dynamic shared memory of a band of ``bw`` columns and windows of ``m``,
+    or with none where ``bw`` is 0 (the blocks its registers allow). Asked
+    once for each kernel, band and card."""
+    query, err = _lib(lib, f"{lib}_wide_blocks", [_I] * 4 + [_P])
+    per_sm = ctypes.c_int(0)
+    _raise_on(query(int(variant), int(staged), int(bw), int(m),
+                    ctypes.addressof(per_sm)), err, f"{lib}_wide_blocks")
+    return per_sm.value
+
+
+class WidePlan(NamedTuple):
+    """How a wide kernel runs a band (``wide_plan``)."""
+
+    staged: bool     # the lane's window in shared memory
+    reg_blocks: int  # blocks an SM the registers of the form that runs allow
+    smem: int        # shared memory of a block, bytes
+    per_sm: int      # blocks resident on an SM (the occupancy query)
+    blocks: int      # blocks resident on the card: a launch's grid
+
+
+def wide_plan(layout: BandLayout, lib: str, variant: int, bw: int, m: int,
+              use_cb: bool) -> WidePlan:
+    """The wide launch of ``lib``'s kernel (``variant`` as ``_wide_blocks``)
+    at a band of ``bw`` columns and windows of ``m`` on the current card:
+    whether it stages the window (``BandLayout.window_staged`` on the
+    blocks the registers of its staged form allow), the blocks an SM the
+    registers of the form that runs allow, its shared memory, and its
+    blocks resident an SM and on the card."""
+    card = torch.cuda.current_device()
+    regs = _wide_blocks(lib, variant, True, 0, 0, card)
+    staged = layout.window_staged(bw, m, regs)
+    if not staged:
+        regs = _wide_blocks(lib, variant, False, 0, 0, card)
+    per_sm = _wide_blocks(lib, variant, staged, bw, m, card)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    return WidePlan(staged, regs, layout.smem_bytes(bw, m, use_cb, staged),
+                    per_sm, max(per_sm, 1) * sms)
+
+
+def _wide_launch(layout: BandLayout, lib: str, variant: int, bw: int, m: int,
+                 use_cb: bool, lanes: int, dev, window_scratch: bool = False,
+                 cb_scratch: bool = False):
+    """A wide launch's ``(scratch, grid, staged)``, the one sizing step of
+    kernels A, C, D and E: its grid of resident thread blocks
+    (``wide_plan``), at most one a lane, and, from torch's caching
+    allocator, m floats of scratch a block for each of the lane's cb suffix
+    (``use_cb`` where the kernel builds it: A, C, E; ``cb_scratch``) and
+    its normalized window where the kernel builds it (A, C;
+    ``window_scratch``) and does not stage it. ``(None, 0, False)`` on the
+    one-warp row, whose launches size their own grids."""
     if layout.warps == 1:
-        return None, 0
-    grid = min(_resident(lib, args, torch.cuda.current_device()), lanes)
-    buf = (torch.empty(grid * 2 * m, dtype=torch.float32, device=dev)
-           if scratch else None)
-    return buf, grid
+        return None, 0, False
+    plan = wide_plan(layout, lib, variant, bw, m, use_cb)
+    grid = min(plan.blocks, lanes)
+    floats = m * (int(window_scratch and not plan.staged)
+                  + int(cb_scratch and use_cb))
+    buf = (torch.empty(grid * floats, dtype=torch.float32, device=dev)
+           if floats else None)
+    return buf, grid, plan.staged

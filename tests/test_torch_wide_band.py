@@ -183,3 +183,194 @@ def test_search_past_one_warp_matches_repro():
     assert got.best_start.tolist() == np.asarray(want.best_start).tolist()
     np.testing.assert_allclose(got.best_dist.numpy(),
                                np.asarray(want.best_dist), rtol=1e-3)
+
+
+# The wide row's Hopper layout (csrc/dtw_band_wide.cuh), mirrored here from
+# the header's constants (the same as ops'): the previous row striped in
+# shared memory (wide_word), the staged window padded a word every 32
+# columns (window_word), and the rule that stages the window
+# (BandLayout.window_staged). A warp's access costs one shared-memory
+# wavefront per distinct bank it hits most often: 32 banks of 4 bytes.
+THREADS = 32 * ops.WIDE_WARPS
+BANKS = 32
+
+
+def _row_word(s: int, bw: int) -> int:
+    """wide_word: slot g0 + 8t + k at word g0 + k * stride + t."""
+    g0 = s - s % ops.WIDE_SEGMENT
+    stride = min(THREADS, -(-(bw - g0) // ops.WIDE_CPT))
+    r = s - g0
+    return g0 + (r % ops.WIDE_CPT) * stride + r // ops.WIDE_CPT
+
+
+def _window_word(j: int) -> int:
+    """window_word of a staged window: a padding word every 32 columns."""
+    return j + (j >> 5)
+
+
+def _ways(words) -> int:
+    """Wavefronts of one warp's shared-memory access: the most distinct
+    words that fall on one bank (equal words are one broadcast)."""
+    per_bank = {}
+    for w in set(words):
+        per_bank.setdefault(w % BANKS, set()).add(w)
+    return max((len(v) for v in per_bank.values()), default=0)
+
+
+def _smem_blocks(nbytes: int) -> int:
+    """Blocks of 256 threads an H100 SM holds by shared memory alone: 228
+    KB, 1 KB of it reserved for each block, and 2048 threads."""
+    return min(2048 // THREADS, (228 * 1024) // (nbytes + 1024))
+
+
+ROW_BANDS = (1025, 1031, 1664, 2047, 2048, 2049, 2055, 2500, 4095, 4096,
+             6000, 16_384, 16_385, 29_056, ops.WIDE_MAX_BAND - 7,
+             ops.WIDE_MAX_BAND)
+
+
+@pytest.mark.parametrize("bw", ROW_BANDS)
+def test_row_map_is_one_to_one_and_conflict_free(bw):
+    """Every slot of the band has its own word below ``bw`` rounded up to
+    ``WIDE_CPT`` (the row's shared memory); every warp's load and store of
+    its threads' slot k, and its neighbour read (slot base + 8 after a
+    shift, base - 1 otherwise; thread 0 of the block reads ``sh.edge``
+    instead), hits each bank at most once: one wavefront. The kernel's own
+    offsets (``seg[k * stride]``, ``g0 + tid + 1``, the next segment's
+    first, ``seg[7 * stride - 1]``) are the map's words."""
+    words = [_row_word(s, bw) for s in range(bw)]
+    row_words = -(-bw // ops.WIDE_CPT) * ops.WIDE_CPT
+    assert len(set(words)) == bw and max(words) < row_words
+    assert _row_word(0, bw) == 0
+    segs = -(-bw // ops.WIDE_SEGMENT)
+    for g in range(segs):
+        g0 = g * ops.WIDE_SEGMENT
+        stride = min(THREADS, -(-(bw - g0) // ops.WIDE_CPT))
+        for w in range(ops.WIDE_WARPS):
+            tids = range(32 * w, 32 * w + 32)
+            for k in range(ops.WIDE_CPT):
+                acc = [(tid, g0 + tid * ops.WIDE_CPT + k) for tid in tids
+                       if g0 + tid * ops.WIDE_CPT + k < bw]
+                for tid, s in acc:
+                    assert _row_word(s, bw) == g0 + k * stride + tid
+                assert _ways(_row_word(s, bw) for _, s in acc) <= 1
+            right = []  # after a shift: slot base + 8
+            left = []   # otherwise: slot base - 1
+            for tid in tids:
+                base = g0 + tid * ops.WIDE_CPT
+                if base + ops.WIDE_CPT < bw:
+                    nxt = g0 + ops.WIDE_SEGMENT if tid == THREADS - 1 \
+                        else g0 + tid + 1
+                    assert _row_word(base + ops.WIDE_CPT, bw) == nxt
+                    right.append(nxt)
+                if tid > 0 and base - 1 < bw:
+                    prev = g0 + (ops.WIDE_CPT - 1) * stride + tid - 1
+                    assert _row_word(base - 1, bw) == prev
+                    left.append(prev)
+            assert _ways(right) <= 1 and _ways(left) <= 1
+
+
+def test_window_map_is_at_most_two_way_conflicted():
+    """A warp reads window columns lo + g0 + 8t + k (t its 32 threads):
+    with the padding word every 32 columns at most 2 wavefronts for every
+    lo mod 32 and k (the segment and warp offsets are multiples of 32 and
+    shift every word alike), where the unpadded window takes 8. Staging
+    writes columns j = tid + 256 i, one wavefront a warp."""
+    worst, unpadded = 0, 0
+    for lo in range(BANKS):
+        for k in range(ops.WIDE_CPT):
+            for base in (0, 32 * 8 * 3, ops.WIDE_SEGMENT):
+                cols = [lo + base + ops.WIDE_CPT * t + k for t in range(32)]
+                worst = max(worst, _ways(_window_word(c) for c in cols))
+                unpadded = max(unpadded, _ways(cols))
+    assert worst == 2 and unpadded == 8
+    for m in (2048, 8192, 2049, 29_056):
+        for j0 in range(0, m, 32):
+            cols = range(j0, min(j0 + 32, m))
+            assert _ways(_window_word(j) for j in cols) == 1
+        assert max(_window_word(j) for j in range(m)) < m + (m >> 5)
+
+
+@pytest.mark.parametrize("reg_blocks", [1, 2, 3, 4])
+def test_window_staged_exactly_where_it_keeps_the_register_blocks(
+        reg_blocks):
+    """Over every band past one warp, and over the lengths a search can
+    reach (a band is at most its length; up to ``LB_MAX_LENGTH``, and full
+    rows past it): the window is staged exactly where the staged block
+    still leaves ``reg_blocks`` blocks on an SM; a staged block fits
+    ``BLOCK_SMEM_MAX`` and keeps at least as many blocks as the unstaged
+    one with the same registers; ``smem_bytes`` counts the row (bw
+    rounded up to 8), the padded window and the static part. The three
+    bands of ``chip_smoke.py`` stage at l = 2048 and 8192 and not at
+    16,384 where the registers allow 2 to 4 blocks."""
+    lengths = range(1025, ops.LB_MAX_LENGTH + 1, 509)
+    cases = [(bw, bw) for bw in range(1025, ops.WIDE_MAX_BAND + 1)]
+    cases += [(bw, m) for bw in range(1025, ops.LB_MAX_LENGTH + 1, 61)
+              for m in lengths if m >= bw]
+    for bw, m in cases:
+        lay = ops.band_layout(bw, m, use_cb=True)
+        row = 4 * (-(-bw // 8) * 8) + ops.WIDE_STATIC_SMEM
+        staged_bytes = row + 4 * (m + m // 32)
+        assert lay.smem_bytes(bw, m, True) == row
+        assert lay.smem_bytes(bw, m, True, staged=True) == staged_bytes
+        assert lay.blocks_by_smem(staged_bytes) == _smem_blocks(staged_bytes)
+        staged = lay.window_staged(bw, m, reg_blocks)
+        assert staged == (_smem_blocks(staged_bytes) >= reg_blocks)
+        assert row <= ops.BLOCK_SMEM_MAX
+        if staged:
+            assert staged_bytes <= ops.BLOCK_SMEM_MAX
+            assert min(reg_blocks, _smem_blocks(staged_bytes)) >= \
+                min(reg_blocks, _smem_blocks(row))
+    if reg_blocks >= 2:
+        for m, bw, want in ((2048, 2048, True), (8192, 1664, True),
+                            (16_384, 16_384, False)):
+            assert ops.band_layout(bw, m).window_staged(bw, m, reg_blocks) \
+                == want
+    assert not ops.band_layout(224).window_staged(224, 1024, 1)
+
+
+@pytest.mark.parametrize("kernel", ["A", "C", "D", "E"])
+def test_wide_launch_sizes_grid_and_scratch(monkeypatch, kernel):
+    """``_wide_launch`` on a stand-in card (132 SMs, registers for 3
+    blocks, the occupancy query answered by the shared-memory model): the
+    grid is the resident blocks capped at the lanes; the scratch holds m
+    floats a block for the cb suffix where the kernel builds it (A, C, E,
+    with ``use_cb``) and m more for the window where the kernel builds it
+    (A, C) and does not stage it; none at all where nothing is left."""
+    lib, variant, window_scratch, cb_scratch = {
+        "A": ("dtw_ea_fused", 0, True, True),
+        "C": ("dtw_ea_persistent", 1, True, True),
+        "D": ("dtw_ea_slab", 0, False, False),
+        "E": ("dtw_ea_persistent", 0, False, True)}[kernel]
+    regs, sms = 3, 132
+
+    def blocks(lib_, variant_, staged, bw, m, device):
+        assert (lib_, variant_, device) == (lib, variant, 0)
+        if bw == 0:
+            return regs
+        lay = ops.band_layout(bw)
+        return min(regs, lay.blocks_by_smem(lay.smem_bytes(bw, m, False,
+                                                           staged)))
+
+    monkeypatch.setattr(ops, "_wide_blocks", blocks)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda card: type("P", (), {
+                            "multi_processor_count": sms}))
+    for m, bw, lanes in ((2048, 2048, 512), (8192, 1664, 512),
+                         (16_384, 16_384, 256), (16_384, 16_384, 8)):
+        lay = ops.band_layout(bw, m)
+        for use_cb in (False, True):
+            buf, grid, staged = ops._wide_launch(
+                lay, lib, variant, bw, m, use_cb, lanes, torch.device("cpu"),
+                window_scratch=window_scratch, cb_scratch=cb_scratch)
+            assert staged == (m != 16_384)
+            # the row alone leaves 3 blocks an SM at l = 16,384
+            assert grid == min(lanes, sms * regs)
+            floats = m * (int(window_scratch and not staged)
+                          + int(cb_scratch and use_cb))
+            if floats == 0:
+                assert buf is None
+            else:
+                assert buf.numel() == grid * floats
+    assert ops._wide_launch(ops.band_layout(224), lib, variant, 224, 1024,
+                            True, 64, torch.device("cpu")) == (None, 0, False)
