@@ -15,6 +15,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core import guards
 from repro_torch.core.common import as_float32, resolve_device
 from repro_torch.search.pipeline import (
@@ -86,38 +87,39 @@ def multi_query_search(
     Returns: ``MultiSearchResult`` of per-query ``(Q,)`` tensors on the
     device.
     """
-    dev = resolve_device(device)
-    guards.ensure_series(ref, "ref", ndim=1, min_len=length)
-    guards.ensure_series(queries, "queries", ndim=2, min_len=length)
-    guards.ensure_finite(queries, "queries")
-    if ub_init is not None:
-        ub_init = as_float32(ub_init, dev)
-        if bool(torch.isnan(ub_init).any()):
-            raise guards.NonFiniteInputError(
-                "ub_init contains NaN (use +inf / BIG for a cold start)"
-            )
-    plan = make_plan(
-        length=length, window=window, variant=variant, batch=batch,
-        band_width=band_width, chunk=chunk, rows_per_step=rows_per_step,
-        block_k=block_k, row_block=row_block, rounds=rounds,
-        quarantine=quarantine, warm_start=warm_start, gather=gather,
-        slab_budget=slab_budget, with_info=with_info,
-        allowed_variants=MULTI_VARIANTS,
-    )
-    state, stats, n_quar = _offline_search_impl(
-        as_float32(ref, dev), as_float32(queries, dev), ub_init, plan,
-        with_info=with_info,
-    )
-    return MultiSearchResult(
-        best_start=state.best,
-        best_dist=state.ub,
-        rounds=stats.rounds,
-        lanes=stats.lanes,
-        lb_pruned=stats.lb_pruned,
-        rows=stats.rows,
-        cells=stats.cells,
-        quarantined=n_quar,
-    )
+    with spans.span(spans.SEARCH):
+        dev = resolve_device(device)
+        guards.ensure_series(ref, "ref", ndim=1, min_len=length)
+        guards.ensure_series(queries, "queries", ndim=2, min_len=length)
+        guards.ensure_finite(queries, "queries")
+        if ub_init is not None:
+            ub_init = as_float32(ub_init, dev)
+            if bool(torch.isnan(ub_init).any()):
+                raise guards.NonFiniteInputError(
+                    "ub_init contains NaN (use +inf / BIG for a cold start)"
+                )
+        plan = make_plan(
+            length=length, window=window, variant=variant, batch=batch,
+            band_width=band_width, chunk=chunk, rows_per_step=rows_per_step,
+            block_k=block_k, row_block=row_block, rounds=rounds,
+            quarantine=quarantine, warm_start=warm_start, gather=gather,
+            slab_budget=slab_budget, with_info=with_info,
+            allowed_variants=MULTI_VARIANTS,
+        )
+        state, stats, n_quar = _offline_search_impl(
+            as_float32(ref, dev), as_float32(queries, dev), ub_init, plan,
+            with_info=with_info,
+        )
+        return MultiSearchResult(
+            best_start=state.best,
+            best_dist=state.ub,
+            rounds=stats.rounds,
+            lanes=stats.lanes,
+            lb_pruned=stats.lb_pruned,
+            rows=stats.rows,
+            cells=stats.cells,
+            quarantined=n_quar,
+        )
 
 
 def make_distributed_multi_search(

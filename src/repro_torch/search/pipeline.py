@@ -27,6 +27,9 @@ round (the round kernels check their lanes on the device). The persistent
 sweep makes one host sync, the out-of-range count of kernel C. The
 counters add up per query in int64 (``repro`` adds them in int32, which a
 query at N = 1e6, l = 1024 overflows); they are -1 when not collected.
+Each offline stage, driver and round is a span of ``repro_torch.spans``,
+and the drivers count live lanes and pruned windows there, while a
+recording is on; a stream's ingests record their rounds only.
 
 The executor seam (``Executor.run_range``) binds the offline core to one
 workload and searches any window-start range of it from carried
@@ -50,6 +53,7 @@ from typing import NamedTuple, Protocol
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core import guards
 from repro_torch.core.batch import (
     block_sweep,
@@ -432,37 +436,56 @@ def run_host_rounds(
     # never enters the round loop.
     lanes = torch.where(active, 0, pre).to(torch.int64)
     cols = torch.arange(batch, device=dev)
+    # While a recording is on, each round's live lanes add up on the device
+    # (one add a round) and are counted once, after the loop.
+    live_lanes = (torch.zeros((nq, batch), dtype=torch.int64, device=dev)
+                  if spans.on() else None)
+    n_iter = 0
 
-    while bool(active.any()):
-        idx = torch.clamp_max(r, n_rounds - 1)[:, None] * batch + cols
-        starts = order_p.gather(1, idx)
-        lbs_b = lb_p.gather(1, idx)
-        ub_lanes = _dead_or(active[:, None] & (lbs_b < state.ub[:, None]),
-                            state.ub)
-        d, info = _dtw_round(plan, prep, pq, starts, ub_lanes,
-                             use_cb=plan.use_cb, with_info=with_info)
-        if with_info:
-            rows_q, cells_q = _query_totals(info, nq, dev)
-            rows, cells = rows + rows_q, cells + cells_q
-        d = torch.where(torch.isfinite(lbs_b) & active[:, None], d,
-                        float("inf"))
-        state, _ = fold_min(state, starts, d, offset=offset)
-        r_new = r + active.to(r.dtype)
-        more = r_new < n_rounds
-        if plan.use_lb:
-            nxt = lb_p.gather(1, torch.clamp_max(r_new, n_rounds - 1)[:, None]
-                              * batch)[:, 0]
-            more = more & (nxt < state.ub)
-        lanes = lanes + active.to(lanes.dtype) * batch
-        active = active & more
-        r = r_new
+    go = bool(active.any())
+    while go:
+        n_iter += 1
+        with spans.span("round"):
+            with spans.span("round.issue"):
+                idx = torch.clamp_max(r, n_rounds - 1)[:, None] * batch + cols
+                starts = order_p.gather(1, idx)
+                lbs_b = lb_p.gather(1, idx)
+                live = active[:, None] & (lbs_b < state.ub[:, None])
+                if live_lanes is not None:
+                    live_lanes += live
+                ub_lanes = _dead_or(live, state.ub)
+                d, info = _dtw_round(plan, prep, pq, starts, ub_lanes,
+                                     use_cb=plan.use_cb, with_info=with_info)
+                if with_info:
+                    rows_q, cells_q = _query_totals(info, nq, dev)
+                    rows, cells = rows + rows_q, cells + cells_q
+                d = torch.where(torch.isfinite(lbs_b) & active[:, None], d,
+                                float("inf"))
+                state, _ = fold_min(state, starts, d, offset=offset)
+                r_new = r + active.to(r.dtype)
+                more = r_new < n_rounds
+                if plan.use_lb:
+                    nxt = lb_p.gather(
+                        1, torch.clamp_max(r_new, n_rounds - 1)[:, None]
+                        * batch)[:, 0]
+                    more = more & (nxt < state.ub)
+                lanes = lanes + active.to(lanes.dtype) * batch
+                active = active & more
+                r = r_new
+            go = bool(active.any())
 
     if not with_info:
         rows = cells = torch.full((nq,), -1, dtype=torch.int64, device=dev)
+    if live_lanes is not None:
+        spans.count("host_rounds.live_lanes", live_lanes)
+        spans.count("host_rounds.lanes_launched", nq * batch * n_iter)
+    lb_pruned = n_win - torch.clamp_max(lanes, n_win)
+    spans.count("cascade.pruned", lb_pruned)
+    spans.count("cascade.windows", nq * n_win)
     return state, SearchStats(
         rounds=r,
         lanes=lanes,
-        lb_pruned=n_win - torch.clamp_max(lanes, n_win),
+        lb_pruned=lb_pruned,
         rows=rows,
         cells=cells,
     )
@@ -524,12 +547,15 @@ def run_persistent(
     # Visited blocks are a best-first prefix per query, so only the final
     # padded block can hold non-candidates: clamp to n_win.
     lanes = torch.clamp_max(blocks.to(torch.int64) * plan.block_k, n_win)
+    lb_pruned = n_win - lanes
+    spans.count("cascade.pruned", lb_pruned)
+    spans.count("cascade.windows", nq * n_win)
     no_info = torch.full((nq,), -1, dtype=torch.int64, device=order.device)
     return state, SearchStats(
         rounds=torch.full((nq,), 2 if pre else 1, dtype=torch.int64,
                           device=order.device),
         lanes=lanes,
-        lb_pruned=n_win - lanes,
+        lb_pruned=lb_pruned,
         rows=no_info,
         cells=no_info,
     )
@@ -543,16 +569,22 @@ def _offline_search_impl(
     core behind ``multi_query_search`` and ``subsequence_search`` (Q=1).
     Returns ``(IncumbentState, SearchStats, n_quar)``; ``with_info``
     collects the host rounds' counters."""
-    prep = prepare_ref(plan, ref)
-    pq = prepare_queries(plan, queries)
-    order, lb_sorted = cascade(plan, prep, pq.qn)
+    with spans.span("prepare_ref"):
+        prep = prepare_ref(plan, ref)
+    with spans.span("prepare_queries"):
+        pq = prepare_queries(plan, queries)
+    with spans.span("cascade"):
+        order, lb_sorted = cascade(plan, prep, pq.qn)
     state0 = initial_state(pq.qn.shape[0], pq.qn.dtype, ub_init,
                            best_dtype=order.dtype, device=ref.device)
     if plan.rounds == "persistent":
-        state, stats = run_persistent(plan, prep, pq, order, lb_sorted, state0)
+        with spans.span("persistent_sweep"):
+            state, stats = run_persistent(plan, prep, pq, order, lb_sorted,
+                                          state0)
     else:
-        state, stats = run_host_rounds(plan, prep, pq, order, lb_sorted,
-                                       state0, with_info=with_info)
+        with spans.span("host_rounds"):
+            state, stats = run_host_rounds(plan, prep, pq, order, lb_sorted,
+                                           state0, with_info=with_info)
     return state, stats, prep.n_quar
 
 

@@ -15,6 +15,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import guards
 from repro_torch.core.common import resolve_device
 from repro_torch.search.multi import as_float32
@@ -68,42 +69,43 @@ def subsequence_search(
     collects the rows and cells the search issues, in int64; without it
     they are -1. Returns ``SearchResult`` of 0-d tensors on the device.
     """
-    dev = resolve_device(device)
-    guards.ensure_series(ref, "ref", ndim=1, min_len=length)
-    if len(getattr(query, "shape", np.shape(query))) != 1:
-        raise NotImplementedError(
-            "multivariate (l, dims) queries have no search path: repro's "
-            "subsequence_search fails on one with a TypeError (sub got "
-            "incompatible shapes for broadcasting), so there is no "
-            "reference to port (ROADMAP.md Queue 3); core.dtw takes "
-            "(n, dims) series"
-        )
-    guards.ensure_series(query, "query", ndim=1, min_len=length)
-    guards.ensure_finite(query, "query")
-    plan = make_plan(
-        length=length, window=window, variant=variant, batch=batch,
-        band_width=band_width, chunk=chunk, rows_per_step=rows_per_step,
-        block_k=block_k, row_block=row_block, rounds=rounds,
-        quarantine=quarantine, gather=gather, slab_budget=slab_budget,
-        with_info=with_info,
-    )
-    if variant in MULTI_VARIANTS:
-        state, stats, n_quar = _offline_search_impl(
-            as_float32(ref, dev), as_float32(query, dev)[None, :], None, plan,
+    with spans.span(spans.SEARCH):
+        dev = resolve_device(device)
+        guards.ensure_series(ref, "ref", ndim=1, min_len=length)
+        if len(getattr(query, "shape", np.shape(query))) != 1:
+            raise NotImplementedError(
+                "multivariate (l, dims) queries have no search path: repro's "
+                "subsequence_search fails on one with a TypeError (sub got "
+                "incompatible shapes for broadcasting), so there is no "
+                "reference to port (ROADMAP.md Queue 3); core.dtw takes "
+                "(n, dims) series"
+            )
+        guards.ensure_series(query, "query", ndim=1, min_len=length)
+        guards.ensure_finite(query, "query")
+        plan = make_plan(
+            length=length, window=window, variant=variant, batch=batch,
+            band_width=band_width, chunk=chunk, rows_per_step=rows_per_step,
+            block_k=block_k, row_block=row_block, rounds=rounds,
+            quarantine=quarantine, gather=gather, slab_budget=slab_budget,
             with_info=with_info,
         )
-    else:
-        state, stats, n_quar = _baseline_search_impl(
-            as_float32(ref, dev), as_float32(query, dev), plan,
-            with_info=with_info,
+        if variant in MULTI_VARIANTS:
+            state, stats, n_quar = _offline_search_impl(
+                as_float32(ref, dev), as_float32(query, dev)[None, :], None,
+                plan, with_info=with_info,
+            )
+        else:
+            state, stats, n_quar = _baseline_search_impl(
+                as_float32(ref, dev), as_float32(query, dev), plan,
+                with_info=with_info,
+            )
+        return SearchResult(
+            best_start=state.best[0],
+            best_dist=state.ub[0],
+            rounds=stats.rounds[0],
+            lanes=stats.lanes[0],
+            lb_pruned=stats.lb_pruned[0],
+            rows=stats.rows[0],
+            cells=stats.cells[0],
+            quarantined=n_quar,
         )
-    return SearchResult(
-        best_start=state.best[0],
-        best_dist=state.ub[0],
-        rounds=stats.rounds[0],
-        lanes=stats.lanes[0],
-        lb_pruned=stats.lb_pruned[0],
-        rows=stats.rows[0],
-        cells=stats.cells[0],
-        quarantined=n_quar,
-    )
