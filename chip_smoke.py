@@ -57,8 +57,9 @@ Drives ``repro_torch`` (never JAX, never ``repro``) on ``cuda:0``:
      with the DP oracle, and each search run once more must give the same
      bits; the persistent search must launch C once, B once and A never,
      and find the host rounds' ``best_start``; the host rounds run a third
-     time with CUDA events around every launch of kernel A, to split their
-     wall into kernel A and the host loop, and a fourth time with
+     time, every round eager, with CUDA events around every launch of
+     kernel A, to split their wall into kernel A and the host loop, and a
+     fourth time with
      ``with_info=True`` (the counter variant of A), which must give the
      same ``best_start`` and ``best_dist`` bits, and prints each query's
      int64 rows and cells. Then the slab arms at the
@@ -70,7 +71,9 @@ Drives ``repro_torch`` (never JAX, never ``repro``) on ``cuda:0``:
      arrivals of 1 to 50,000 samples, each engine built by
      ``SearchConfig.make_stream_engine``, in five arms: (a) the default
      engine (``stream_chunk`` = 8192, ``gather="fused"``: kernels B and
-     A), its wall split by CUDA events around A and B; (b) the raw form
+     A), run again with every round eager and CUDA events around A and B,
+     which must give the same bits and launches and split its wall; (b)
+     the raw form
      (``stream_chunk=None``, 100,000-sample arrivals); (b2) the raw form on
      (a)'s arrivals, which times the fixed ingest shape; (c)
      ``gather="slab"`` (kernels B and D); (d) re-admission: a ring of
@@ -1844,10 +1847,13 @@ def kernel_events(torch, names):
     ``search.cascade`` (kernel B) see a stand-in for ``kernels.ops`` that
     records CUDA events around every launch of the wrappers in ``names``
     (the wrappers still count their launches). Yields ``{name: [(start,
-    end), ...]}``; read it after a device sync."""
+    end), ...]}``; read it after a device sync. Where ``names`` is not
+    empty, the host rounds run every round eagerly within the block (the
+    events go round each launch, which a replayed round does not make);
+    with no names, the block changes nothing."""
     from repro_torch.core import batch
     from repro_torch.kernels import ops
-    from repro_torch.search import cascade
+    from repro_torch.search import cascade, pipeline
 
     events = {name: [] for name in names}
 
@@ -1869,10 +1875,14 @@ def kernel_events(torch, names):
     for name in names:
         setattr(stand_in, name, timed(name))
     batch.ops = cascade.ops = stand_in
+    capture_now = pipeline._capture_now
+    if names:
+        pipeline._capture_now = lambda *a: False
     try:
         yield events
     finally:
         batch.ops = cascade.ops = ops
+        pipeline._capture_now = capture_now
 
 
 def events_ms(evs) -> float:
@@ -2158,9 +2168,11 @@ def phase_stream(torch, cfg, ref, queries, host: dict) -> dict:
 
     # (a), (b), (c): the default engine, the raw form, slab gather; and the
     # raw form on (a)'s arrivals, which times the fixed ingest shape
-    # (stream_chunk) against ingesting each arrival as it comes. Arm (a)
-    # runs with CUDA events around every launch of kernels A and B
-    # (kernel_events), which split its wall.
+    # (stream_chunk) against ingesting each arrival as it comes. Each arm
+    # runs the default round loop (replayed rounds where an ingest runs
+    # long enough); arm (a) runs once more after them with CUDA events
+    # around every launch of kernels A and B (kernel_events, every round
+    # eager), which split its wall.
     timed_a = ["dtw_ea_multi_fused", "lb_keogh_all_windows"]
     for label, kw, arm_sizes, round_kernel in (
         ("(a) default", {}, sizes, "dtw_ea_multi_fused"),
@@ -2174,22 +2186,9 @@ def phase_stream(torch, cfg, ref, queries, host: dict) -> dict:
         results = []
         eng = engine(results, **kw)
         zero_launches()
-        with kernel_events(torch, timed_a if label == "(a) default"
-                           else []) as ev:
-            fed = feed_stream(torch, eng, ref, arm_sizes)
+        fed = feed_stream(torch, eng, ref, arm_sizes)
         launches = launches_now()
         rounds = report(label, eng, fed, results, launches)
-        if label == "(a) default":
-            wall_ms = fed["wall_s"] * 1e3
-            a_ms, b_ms = (events_ms(ev[k]) for k in timed_a)
-            rest = wall_ms - a_ms - b_ms
-            say(f"  (a) with events around kernels A and B: A {a_ms:.1f} ms "
-                f"in all ({100 * a_ms / wall_ms:.1f}% of the wall, "
-                f"{a_ms / len(ev[timed_a[0]]):.4f} ms a launch), B "
-                f"{b_ms:.1f} ms ({100 * b_ms / wall_ms:.2f}%), the rest "
-                f"{rest:.1f} ms ({100 * rest / wall_ms:.1f}%, "
-                f"{rest / eng.rounds:.4f} ms a round)")
-            arms[label].update(a_ms=a_ms, b_ms=b_ms, rest_ms=rest)
         by_arm[label] = launches
         check(launches[round_kernel] == rounds == eng.rounds > 0,
               f"{label}: launches of {round_kernel} are not the ingests' "
@@ -2218,7 +2217,33 @@ def phase_stream(torch, cfg, ref, queries, host: dict) -> dict:
         f"ingests, {pa['rounds']} against {pr['rounds']} rounds); an arrival "
         f"{pa['p50_ms']:.2f} against {pr['p50_ms']:.2f} ms at the median, "
         f"{pa['p99_ms']:.2f} against {pr['p99_ms']:.2f} ms at the 99th "
-        "percentile (arm (a) with its kernel events)")
+        "percentile")
+
+    # Arm (a) again, every round eager, with events around A and B: the
+    # same bits and launches, and the split of its wall.
+    results = []
+    eng = engine(results)
+    zero_launches()
+    with kernel_events(torch, timed_a) as ev:
+        fed = feed_stream(torch, eng, ref, sizes)
+    launches = launches_now()
+    wall_ms = fed["wall_s"] * 1e3
+    a_ms, b_ms = (events_ms(ev[k]) for k in timed_a)
+    rest = wall_ms - a_ms - b_ms
+    say(f"  (a) eager, with events around kernels A and B: "
+        f"{fed['wall_s']:.3f} s wall (graphed {pa['wall_s']:.3f} s); A "
+        f"{a_ms:.1f} ms in all ({100 * a_ms / wall_ms:.1f}% of the wall, "
+        f"{a_ms / len(ev[timed_a[0]]):.4f} ms a launch), B {b_ms:.1f} ms "
+        f"({100 * b_ms / wall_ms:.2f}%), the rest {rest:.1f} ms "
+        f"({100 * rest / wall_ms:.1f}%, {rest / eng.rounds:.4f} ms a round)")
+    pa.update(eager_wall_s=fed["wall_s"], a_ms=a_ms, b_ms=b_ms, rest_ms=rest)
+    check(torch.equal(eng.best()[0], a_state["best"])
+          and torch.equal(eng.best()[1], a_state["ub"])
+          and (eng.rounds, eng.lanes) == (a_state["rounds"], a_state["lanes"]),
+          "(a) eager: the bits differ from the default round loop's")
+    check(launches == by_arm["(a) default"],
+          "(a) eager: the launches differ from the default round loop's")
+    del eng, results
 
     # (d): re-admission through correct, save_state and restore_state.
     pos = n // 2

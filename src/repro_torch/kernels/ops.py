@@ -4,9 +4,12 @@ Each wrapper checks its tensors, then dispatches on their device: CPU
 tensors run the kernel's plain PyTorch version; CUDA tensors launch the
 kernel or raise. There is no fallback from the kernel to the plain version.
 Each wrapper counts its kernel launches in a plain int attribute,
-``<wrapper>.launches``, incremented only where it launches its kernel (the
+``<wrapper>.launches``, incremented where it launches its kernel (the
 counter variants of kernels A and D, ``with_info=True``, count as launches
-of their kernel). The
+of their kernel); a call made while a CUDA graph is captured launches
+nothing, and the capturer puts its count back and adds it again on each
+replay (``search/pipeline.py::_RoundGraph``, through
+:func:`counted_launches`), so a replayed launch counts as an eager one. The
 two persistent wrappers also keep ``<wrapper>.lanes_run``: after a launch
 on the card, a ``(Q,)`` int32 tensor of the lanes of each query that passed
 the gate and ran (``None`` before the first).
@@ -828,6 +831,13 @@ def dtw_ea_persistent_fused(
 
 dtw_ea_persistent_fused.launches = 0
 dtw_ea_persistent_fused.lanes_run = None
+
+
+def counted_launches() -> dict:
+    """Each wrapper of this module that counts its launches, with its
+    count now."""
+    return {f: f.launches for f in list(globals().values())
+            if callable(f) and hasattr(f, "launches")}
 
 
 def persistent_grid(length: int, band_width: int, use_cb: bool,

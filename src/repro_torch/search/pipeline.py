@@ -22,11 +22,19 @@ rounds seeded with the carried incumbents). Stages::
                               (Q, n_win, l) slab (slab)
 
 ``repro`` runs the round loop as a ``lax.while_loop``; here it is a Python
-loop that reads ``any(active)`` once per round, the only host sync of a
-round (the round kernels check their lanes on the device). The persistent
-sweep makes one host sync, the out-of-range count of kernel C. The
-counters add up per query in int64 (``repro`` adds them in int32, which a
-query at N = 1e6, l = 1024 overflows); they are -1 when not collected.
+loop around one round step (``_round_step``), which reads the loop's
+state from buffers that keep their addresses for the call and writes the
+next state back into them. Every round ends in the host reading
+``any(active)``, the only host sync of a round (the round kernels check
+their lanes on the device). On the card, a call that is still going after
+``GRAPH_AFTER_ROUNDS`` eager rounds, and can run as many more, captures
+the step once as a CUDA graph and replays it each later round, so the
+host issues one graph launch a round instead of some forty operations.
+On the CPU, and in calls that end sooner (a few-round search or stream
+ingest), every round runs the step eagerly. The persistent sweep makes one host
+sync, the out-of-range count of kernel C. The counters add up per query
+in int64 (``repro`` adds them in int32, which a query at N = 1e6,
+l = 1024 overflows); they are -1 when not collected.
 Each offline stage, driver and round is a span of ``repro_torch.spans``,
 and the drivers count live lanes and pruned windows there, while a
 recording is on; a stream's ingests record their rounds only.
@@ -46,7 +54,9 @@ the reduced continue flag once a round.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import time
 from dataclasses import dataclass
 from typing import NamedTuple, Protocol
@@ -81,6 +91,7 @@ from repro_torch.distributed.fault_tolerance import (
     WorkerHealth,
     hedge_race,
 )
+from repro_torch.kernels import ops
 from repro_torch.search.cascade import cascade_lower_bounds
 from repro_torch.search.incumbents import (
     IncumbentState,
@@ -409,7 +420,10 @@ def run_host_rounds(
     submitted dead too. With ``with_info`` every round is a counter round
     (kernel A's or D's counter variant) and each query's rows and cells add
     up in int64, its dead lanes included (one row each, as ``repro``
-    counts them); without, they are -1.
+    counts them); without, they are -1. Every round is one
+    :func:`_round_step`; on the card, once the call has run a few rounds
+    (:func:`_capture_now`), a replay of it captured once
+    (:class:`_RoundGraph`).
     """
     nq, n_win = order.shape
     batch = plan.batch
@@ -430,65 +444,215 @@ def run_host_rounds(
         active = lb_p[:, 0] < state.ub
     if plan.gather != "fused":
         _ensure_slab_budget(plan, nq * batch, "run_host_rounds")
-    r = torch.zeros(nq, dtype=torch.int64, device=dev)
     # ``lanes`` counts distinct candidates examined: round 0 re-submits the
     # prepass candidates, so the prepass stands alone only for a query that
     # never enters the round loop.
-    lanes = torch.where(active, 0, pre).to(torch.int64)
+    st = _RoundState(
+        r=torch.zeros(nq, dtype=torch.int64, device=dev),
+        active=active,
+        ub=state.ub.clone(),
+        best=state.best.clone(),
+        lanes=torch.where(active, 0, pre).to(torch.int64),
+        rows=rows.clone() if with_info else None,
+        cells=cells.clone() if with_info else None,
+        # While a recording is on, each round's live lanes add up on the
+        # device (one add a round) and are counted once, after the loop.
+        live_lanes=(torch.zeros((nq, batch), dtype=torch.int64, device=dev)
+                    if spans.on() else None),
+        go=torch.empty((), dtype=torch.bool, device=dev),
+    )
     cols = torch.arange(batch, device=dev)
-    # While a recording is on, each round's live lanes add up on the device
-    # (one add a round) and are counted once, after the loop.
-    live_lanes = (torch.zeros((nq, batch), dtype=torch.int64, device=dev)
-                  if spans.on() else None)
-    n_iter = 0
 
-    go = bool(active.any())
+    def step():
+        _round_step(plan, prep, pq, order_p, lb_p, cols, n_rounds, st,
+                    with_info=with_info, offset=offset)
+
+    # The first rounds run eagerly (the first builds and loads the round
+    # kernel, so the capture issues no set-up); a call still going once it
+    # has run them captures its step and replays it from then on.
+    graph = None
+    n_iter = 0
+    go = bool(st.active.any())
     while go:
         n_iter += 1
         with spans.span("round"):
             with spans.span("round.issue"):
-                idx = torch.clamp_max(r, n_rounds - 1)[:, None] * batch + cols
-                starts = order_p.gather(1, idx)
-                lbs_b = lb_p.gather(1, idx)
-                live = active[:, None] & (lbs_b < state.ub[:, None])
-                if live_lanes is not None:
-                    live_lanes += live
-                ub_lanes = _dead_or(live, state.ub)
-                d, info = _dtw_round(plan, prep, pq, starts, ub_lanes,
-                                     use_cb=plan.use_cb, with_info=with_info)
-                if with_info:
-                    rows_q, cells_q = _query_totals(info, nq, dev)
-                    rows, cells = rows + rows_q, cells + cells_q
-                d = torch.where(torch.isfinite(lbs_b) & active[:, None], d,
-                                float("inf"))
-                state, _ = fold_min(state, starts, d, offset=offset)
-                r_new = r + active.to(r.dtype)
-                more = r_new < n_rounds
-                if plan.use_lb:
-                    nxt = lb_p.gather(
-                        1, torch.clamp_max(r_new, n_rounds - 1)[:, None]
-                        * batch)[:, 0]
-                    more = more & (nxt < state.ub)
-                lanes = lanes + active.to(lanes.dtype) * batch
-                active = active & more
-                r = r_new
-            go = bool(active.any())
+                if graph is None and _capture_now(dev, n_iter, n_rounds):
+                    graph = _RoundGraph(step, dev)
+                if graph is None:
+                    step()
+                else:
+                    graph.replay()
+            go = bool(st.go)
 
+    if graph is not None:
+        spans.count("host_rounds.graph_rounds", graph.replays)
+    rows, cells = st.rows, st.cells
     if not with_info:
         rows = cells = torch.full((nq,), -1, dtype=torch.int64, device=dev)
-    if live_lanes is not None:
-        spans.count("host_rounds.live_lanes", live_lanes)
+    if st.live_lanes is not None:
+        spans.count("host_rounds.live_lanes", st.live_lanes)
         spans.count("host_rounds.lanes_launched", nq * batch * n_iter)
-    lb_pruned = n_win - torch.clamp_max(lanes, n_win)
+    lb_pruned = n_win - torch.clamp_max(st.lanes, n_win)
     spans.count("cascade.pruned", lb_pruned)
     spans.count("cascade.windows", nq * n_win)
-    return state, SearchStats(
-        rounds=r,
-        lanes=lanes,
+    return IncumbentState(ub=st.ub, best=st.best), SearchStats(
+        rounds=st.r,
+        lanes=st.lanes,
         lb_pruned=lb_pruned,
         rows=rows,
         cells=cells,
     )
+
+
+# The round loop runs this many rounds eagerly before it captures its
+# step, where the call can run as many more. A capture costs the host 1.4-
+# 4.6 ms (2.0 at the median), and a replayed round saves 0.3-0.5 ms at
+# l = 1024; most calls that pass three rounds run many more, so the
+# capture pays for itself, and a call that ends in fewer captures nothing
+# (PERF.md §6, PR 28: stream ingests, small searches).
+GRAPH_AFTER_ROUNDS = 3
+
+
+def _capture_now(dev: torch.device, n_iter: int, n_rounds: int) -> bool:
+    """Whether the round loop captures its step before round ``n_iter``
+    (from 1): on the card, once it has run ``GRAPH_AFTER_ROUNDS`` rounds
+    eagerly, where it can still run as many more."""
+    return (dev.type == "cuda" and n_iter == GRAPH_AFTER_ROUNDS + 1
+            and n_rounds >= 2 * GRAPH_AFTER_ROUNDS)
+
+
+@dataclass
+class _RoundState:
+    """The host round loop's state, in buffers that keep their addresses for
+    the whole call: each round reads them and writes the next state back in
+    place, so a captured round replays against them."""
+    r: torch.Tensor                   # (Q,) int64 rounds run
+    active: torch.Tensor              # (Q,) bool: the query runs this round
+    ub: torch.Tensor                  # (Q,) incumbents
+    best: torch.Tensor                # (Q,) their starts
+    lanes: torch.Tensor               # (Q,) int64 candidates examined
+    rows: torch.Tensor | None         # (Q,) int64, with the counters
+    cells: torch.Tensor | None
+    live_lanes: torch.Tensor | None   # (Q, batch) int64, while recording
+    go: torch.Tensor                  # () bool: any query still active
+
+
+def _round_step(plan, prep, pq, order_p, lb_p, cols, n_rounds: int,
+                st: _RoundState, *, with_info: bool, offset) -> None:
+    """One host round, in place on ``st``: gather each active query's next
+    batch of candidates, run kernel A (or D) on its live lanes, fold the
+    distances into the incumbents, and drop the queries that are done.
+    Issues device work only: no host sync."""
+    nq, batch = st.r.shape[0], plan.batch
+    idx = torch.clamp_max(st.r, n_rounds - 1)[:, None] * batch + cols
+    starts = order_p.gather(1, idx)
+    lbs_b = lb_p.gather(1, idx)
+    live = st.active[:, None] & (lbs_b < st.ub[:, None])
+    if st.live_lanes is not None:
+        st.live_lanes += live
+    ub_lanes = _dead_or(live, st.ub)
+    d, info = _dtw_round(plan, prep, pq, starts, ub_lanes,
+                         use_cb=plan.use_cb, with_info=with_info)
+    if with_info:
+        rows_q, cells_q = _query_totals(info, nq, st.r.device)
+        st.rows += rows_q
+        st.cells += cells_q
+    d = torch.where(torch.isfinite(lbs_b) & st.active[:, None], d,
+                    float("inf"))
+    state, _ = fold_min(IncumbentState(ub=st.ub, best=st.best), starts, d,
+                        offset=offset)
+    st.ub.copy_(state.ub)
+    st.best.copy_(state.best)
+    st.r += st.active
+    more = st.r < n_rounds
+    if plan.use_lb:
+        nxt = lb_p.gather(
+            1, torch.clamp_max(st.r, n_rounds - 1)[:, None] * batch)[:, 0]
+        more &= nxt < st.ub
+    st.lanes += st.active * batch
+    st.active &= more
+    torch.any(st.active, out=st.go)
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_stream(dev: torch.device) -> torch.cuda.Stream:
+    """The side stream every capture on ``dev`` runs on: the allocator
+    caches blocks by stream, so a new stream a capture would hold more."""
+    return torch.cuda.Stream(dev)
+
+
+# The last round graph captured on each card. It is never replayed again,
+# but it keeps its memory pool alive for the next capture there, which
+# allocates from that pool and then frees it: so each capture reuses the
+# blocks of the one before, instead of asking the driver for new ones (and
+# giving them back, which synchronizes the card).
+_LAST_GRAPH: dict[torch.device, torch.cuda.CUDAGraph] = {}
+_FAILED_POOLS: list[torch.cuda.CUDAGraph] = []
+
+
+class _RoundGraph:
+    """``step``'s device work, captured once as a CUDA graph and replayed
+    once a round.
+
+    The capture runs on a side stream in ``"global"`` mode, so a host sync
+    inside the step raises instead of passing silently. (Not through
+    ``torch.cuda.graph``, whose entry synchronizes and empties the
+    allocator's cache, which the next search would pay again.) The graph
+    allocates from the pool of the card's last graph (``_LAST_GRAPH``),
+    and takes its place there. Nothing runs during the capture, so the
+    launches the wrappers of ``kernels.ops`` counted in it are put back,
+    and each replay adds them again (``ops.counted_launches``), as an eager
+    round counts them.
+    """
+
+    def __init__(self, step, dev: torch.device):
+        self.dev = dev
+        self.replays = 0
+        before = ops.counted_launches()
+        last = _LAST_GRAPH.get(dev)
+        with torch.cuda.device(dev):
+            self.graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.stream(_capture_stream(dev)):
+                    self.graph.capture_begin(
+                        pool=None if last is None else last.pool(),
+                        capture_error_mode="global")
+                    try:
+                        step()
+                    finally:
+                        self.graph.capture_end()
+            except BaseException:
+                # A capture that fails is not ended in the allocator, which
+                # would route the side stream's allocations to the pool on.
+                with contextlib.suppress(RuntimeError):
+                    torch.cuda.memory._cuda_endAllocateToPool(
+                        torch.cuda.current_device(), self.graph.pool())
+                self.graph.reset()
+                # The allocators' books of that pool stay half open: the
+                # next capture starts a pool of its own, and the graph that
+                # holds this one is kept, so that the pool is never used or
+                # released again.
+                if last is not None:
+                    _FAILED_POOLS.append(_LAST_GRAPH.pop(dev))
+                raise
+            finally:
+                self.launches = {
+                    f: f.launches - n for f, n in before.items()
+                    if f.launches != n}
+                for f in self.launches:
+                    f.launches = before[f]
+            _LAST_GRAPH[dev] = self.graph
+            if last is not None:
+                last.reset()
+        spans.count("host_rounds.graph_captures", 1)
+
+    def replay(self) -> None:
+        with torch.cuda.device(self.dev):
+            self.graph.replay()
+        self.replays += 1
+        for f, n in self.launches.items():
+            f.launches += n
 
 
 # ---------------------------------------------------------------------------

@@ -38,8 +38,12 @@ A stream's ingests (``run_stream_ingest``) record their ``round`` and
 Counters, one value a driver call: ``host_rounds.live_lanes`` (the
 rounds' live-lane masks, added up on the device, one add a round) and
 ``host_rounds.lanes_launched`` (Q × batch × the rounds);
-``cascade.pruned`` (``SearchStats.lb_pruned``) and ``cascade.windows``
-(Q × the windows).
+``host_rounds.graph_captures`` (1 where the round loop captured its round
+as a CUDA graph) and ``host_rounds.graph_rounds`` (the rounds it ran by
+replaying it), on the card only; ``cascade.pruned``
+(``SearchStats.lb_pruned``) and ``cascade.windows`` (Q × the windows).
+A replayed round keeps its ``round`` and ``round.issue`` spans: the replay
+is the issue, and the sync closes it.
 """
 from __future__ import annotations
 

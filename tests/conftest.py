@@ -10,3 +10,8 @@ import jax
 # model code pins its own dtypes explicitly, so this only affects the
 # default dtype of Python-float conversions in tests.
 jax.config.update("jax_enable_x64", True)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA device (skips where none is present)")

@@ -3,7 +3,11 @@
 A recording must hold the search's stages and rounds as nested spans, one
 search id a search; count the rounds the result reports, the lanes the
 round loop launched live and the windows the cascade pruned; leave every
-result bit for bit as it is without one; and record nothing when off.
+result bit for bit as it is without one; and record nothing when off. On
+the card (``card`` marker), a search's replayed rounds keep their spans
+and count the graph's capture and replays; this file imports no JAX: run
+it there with ``PYTHONPATH=src python -m pytest --noconftest -m card
+tests/test_torch_spans.py``.
 """
 from collections import Counter
 
@@ -19,6 +23,13 @@ from repro_torch.search import multi_query_search, pipeline, subsequence_search
 from repro_torch.serve.stream import StreamSearchEngine
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the card tests run on the H100")
+    return torch.device("cuda")
 
 N, LENGTH, WINDOW, Q, BATCH = 3000, 48, 5, 3, 32  # 2953 windows: ragged
 
@@ -74,10 +85,9 @@ def test_spans_nest_and_carry_one_search_id_per_search():
         assert top == ["prepare_ref", "prepare_queries", "cascade", driver]
 
 
-@pytest.mark.parametrize("variant", ["eapruned", "eapruned_nolb"])
-def test_round_spans_count_the_rounds_of_a_search(variant):
-    with spans.recording() as rec:
-        res = _search(variant=variant)
+def _assert_round_spans(rec, res) -> int:
+    """One ``round`` and one ``round.issue`` span a round, the issue inside
+    its round; returns the rounds."""
     rounds = int(res.rounds.max())
     assert rounds > 1
     assert len(_named(rec, "round")) == rounds
@@ -88,6 +98,33 @@ def test_round_spans_count_the_rounds_of_a_search(variant):
     # A round's sync closes its issue: the issue ends before the round.
     for name, start, end, parent, _ in _named(rec, "round.issue"):
         assert rec.spans[parent][1] <= start and end <= rec.spans[parent][2]
+    return rounds
+
+
+@pytest.mark.parametrize("variant", ["eapruned", "eapruned_nolb"])
+def test_round_spans_count_the_rounds_of_a_search(variant):
+    with spans.recording() as rec:
+        res = _search(variant=variant)
+    _assert_round_spans(rec, res)
+    # On the CPU every round runs eagerly: no graph, so no graph counters.
+    assert "host_rounds.graph_rounds" not in rec.counters
+    assert "host_rounds.graph_captures" not in rec.counters
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("variant", ["eapruned", "eapruned_nolb"])
+def test_round_spans_and_graph_counters_on_the_card(card, variant):
+    """On the card the first rounds run eagerly and every later one is a
+    replay of the round captured once; the spans keep their contract."""
+    ref, queries = _data()
+    with spans.recording() as rec:
+        res = multi_query_search(ref, queries, LENGTH, WINDOW, batch=BATCH,
+                                 variant=variant, device=card)
+    rounds = _assert_round_spans(rec, res)
+    assert rounds > pipeline.GRAPH_AFTER_ROUNDS
+    assert rec.counters["host_rounds.graph_captures"] == [1]
+    assert rec.counters["host_rounds.graph_rounds"] == \
+        [rounds - pipeline.GRAPH_AFTER_ROUNDS]
 
 
 def test_the_persistent_sweep_is_recorded_instead_of_rounds():
