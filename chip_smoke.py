@@ -45,10 +45,15 @@ Drives ``repro_torch`` (never JAX, never ``repro``) on ``cuda:0``:
      off, against their plain versions within ``TOL_WIDE``, C's
      ``best_start`` the plain sweep's; and the one-warp row at its widest
      ("phase 3 long row", l = 4096, bw = 832, CPT = 32), A and C against
-     their plain versions. Kernels C and E over the whole order, the wide
-     row and the long row run after phase 4, beside phase 10's subprocess
-     arms and phase 5's CPU halves, so their plain versions' times are
-     taken there (the whole-order plain sweeps are bound on the card);
+     their plain versions; and the short query ("phase 3 short row",
+     ``SHORT_ROW``: l = 128, w = 12, CPT = 1, right after the
+     repeatability checks), kernel B over every window and kernel A,
+     counter-free and with counters, over the first 3 host rounds of its
+     N = 1e6, Q = 8 search, as at l = 1024. Kernels C and E over the
+     whole order, the wide row and the long row run after phase 4, beside
+     phase 10's subprocess arms and phase 5's CPU halves, so their plain
+     versions' times are taken there (the whole-order plain sweeps are
+     bound on the card);
   4. the main path end to end: ``multi_query_search`` at the
      ``SearchConfig`` defaults (ECG, N = 1,000,000, l = 1024, w = 102,
      Q = 8, batch = 256, ``eapruned``), once with host rounds and once with
@@ -166,7 +171,8 @@ Drives ``repro_torch`` (never JAX, never ``repro``) on ``cuda:0``:
      kernel A's time; then A, D (a round), C and E (the cold sweep) on the
      wide row at the phase-3 bands ("phase 6 wide"), beside their plain
      versions' times and their bounds, with the share of the bound and
-     cells a second;
+     cells a second; then B and A at the short query ("phase 6 short
+     row"), beside their plain versions' times and their bounds;
   7. LM serving ("phase 7 lm serve"), which launches none of the five
      kernels (the launch counts are set to 0 before each arm and read
      after it): (a) Llama-3.2-3B at full width (28 layers, d 3072, 24 / 8
@@ -274,7 +280,8 @@ Drives ``repro_torch`` (never JAX, never ``repro``) on ``cuda:0``:
      sharded's arm (a), fused for A and B and slab for D, ``lm_launches``
      in phase 7, ``train_launches`` in phase 8 and
      ``sharded_train_launches`` in phase 9, all 0, ``dryrun_launches``
-     in phase 10's search cell, A and B), the card's name
+     in phase 10's search cell, A and B; ``short_row``: A's and B's
+     times at the short query), the card's name
      and power limit; the last line is ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result.
@@ -470,6 +477,13 @@ WIDE_SEARCH = dict(ref_len=WIDE_REF_N, query_len=2048, window_ratio=0.5,
 WIDE_CANDIDATES = 512
 WIDE_CROSS_N = 2200
 WIDE_CROSS_Q = 2
+# The UCR Suite's short query (bench/configs/ucr-ecg-l128-r0.1.json):
+# l = 128 at ratio 0.1, w = 12, a band of 25 columns that the one-warp row
+# holds at 1 column a thread, on the main path's N = 1e6 reference and
+# Q = 8. Phase 3 holds kernels B and A to their plain versions there as at
+# l = 1024 (TOL_B, TOL_A: a shorter row sums fewer terms, and its P stays
+# smaller, so each rounds less); phase 6 times them.
+SHORT_ROW = dict(query_len=128, window_ratio=0.1)
 
 # Tolerances, each with its reason.
 # Kernel B: a window's LB_Keogh sums l = 1024 terms; the kernel adds them in
@@ -489,10 +503,10 @@ TOL_A = 1e-3
 # against the host rounds: the same per-lane DP as kernel A, so a
 # distance carries the same rounding of P (1e-3 relative); the winner's
 # start must be equal.
-# Card against CPU: each side computes its own float32 prefix-sum window
-# stats, which round differently (about 1e-5 relative at N = 5e4, less at
-# the 2e4 of CROSS): 1e-4
-# relative on distances; best_start and quarantine counts exactly.
+# Card against CPU: each side works out its own window stats (float64
+# prefix sums, in another order on each side, rounded to float32) and runs
+# its own DP row: 1e-4 relative on distances; best_start and quarantine
+# counts exactly.
 TOL_CROSS = 1e-4
 # Oracle recheck of the winners: the per-lane-offset banded DP of
 # core.ea_pruned_dtw against the round kernel, same stats; its band starts
@@ -777,7 +791,7 @@ def rel_err(k, p) -> float:
     return float(((k - p).abs() / p.abs().clamp_min(1.0)).max())
 
 
-def phase_kernel_b(torch, prep, pq, plan) -> dict:
+def phase_kernel_b(torch, prep, pq, plan, tag: str = "[3 kernel B]") -> dict:
     from repro_torch.kernels import ops
     from repro_torch.kernels.lb_keogh import lb_all_windows_plain
 
@@ -788,13 +802,13 @@ def phase_kernel_b(torch, prep, pq, plan) -> dict:
     p = lb_all_windows_plain(*args, valid=prep.valid, chunk=plan.chunk)
     torch.cuda.synchronize()
     fin = torch.isfinite(p)
-    check(bool((torch.isfinite(k) == fin).all()), "kernel B +inf mask")
+    check(bool((torch.isfinite(k) == fin).all()), f"{tag} +inf mask")
     kf, pf = k[fin], p[fin]
     abs_err = float((kf - pf).abs().max())
     rel = rel_err(kf, pf)
-    say(f"[3 kernel B] {tuple(k.shape)} bounds: max abs err {abs_err:.3e}, "
+    say(f"{tag} {tuple(k.shape)} bounds: max abs err {abs_err:.3e}, "
         f"max rel err {rel:.3e} (tol {TOL_B})")
-    check(rel <= TOL_B, f"kernel B rel err {rel} > {TOL_B}")
+    check(rel <= TOL_B, f"{tag} rel err {rel} > {TOL_B}")
     return {"args": args, "valid": prep.valid, "max_abs_err": abs_err}
 
 
@@ -839,7 +853,7 @@ def phase_kernel_b_sweep(torch) -> None:
             ref = sanitize_series(raw) * scale
             mu, sigma = window_stats(ref, length)
             # The windows inside the flat stretch are constant: their exact
-            # sigma is 0 (float32 prefix sums leave a residue), clamped.
+            # sigma is 0 (differenced prefix sums leave a residue), clamped.
             sigma[flat[0]:flat[1] - length + 1] = 0.0
             n_win = mu.shape[0]
             kw = dict(valid=valid, use_kim=use_kim, use_keogh=use_keogh)
@@ -928,7 +942,8 @@ def check_counts(torch, got, want, near_ub, label: str) -> None:
           "the plain version's")
 
 
-def phase_kernel_a(torch, prep, pq, plan, order, lb_sorted) -> dict:
+def phase_kernel_a(torch, prep, pq, plan, order, lb_sorted,
+                   tag: str = "[3 kernel A]") -> dict:
     from repro_torch.core.common import BIG, clamp_sigma
     from repro_torch.kernels import ops
     from repro_torch.kernels.dtw_band import dtw_ea_fused_plain
@@ -952,7 +967,7 @@ def phase_kernel_a(torch, prep, pq, plan, order, lb_sorted) -> dict:
             k = ops.dtw_ea_multi_fused(*args, **env)
             p, rows, cells = dtw_ea_fused_plain(*args, bw, count=True, **env)
             torch.cuda.synchronize()
-            label = f"[3 kernel A] round {r} use_cb={use_cb}"
+            label = f"{tag} round {r} use_cb={use_cb}"
             err, near_ub = compare_lanes(torch, k, p, ub, label)
             worst_abs = max(worst_abs, err)
             say(f"    plain counts {int(rows.sum())} rows, "
@@ -1550,6 +1565,58 @@ def phase_long_row(torch) -> dict:
     fin = torch.isfinite(ka) & torch.isfinite(p)
     return {"A": a_err, "C": c_err, "rel_A": rel_err(ka[fin], p[fin]),
             "rel_C": rel_err(c[0], pc[0])}
+
+
+def phase_short_row(torch) -> dict:
+    """The one-warp row at one column a thread (``SHORT_ROW``: l = 128,
+    w = 12, a band of 25 columns in a warp's 32) and kernel B at l = 128,
+    on the main path's reference and Q, each against its plain version as
+    phase 3 holds them at l = 1024: B over every window, A (counter-free
+    and with counters) over the lanes and ``ub``s of the first
+    ``KERNEL_A_ROUNDS`` host rounds of the search, ``use_cb`` on and off,
+    within ``TOL_B`` and ``TOL_A``."""
+    from repro_torch.configs.dtw_search import SearchConfig
+    from repro_torch.kernels import ops
+    from repro_torch.search.pipeline import cascade, prepare_queries, prepare_ref
+
+    cfg = SearchConfig(**SHORT_ROW)
+    plan = cfg.make_plan()
+    m = plan.length
+    bw = ops.resolve_band(plan.window, m, m, plan.band_width)
+    layout = ops.band_layout(bw, m, plan.use_cb)
+    check(layout == (1, 1, 1), f"l={m} bw={bw}: {layout}")
+    ref, queries = main_path_inputs(torch, cfg, DEVICE)
+    prep = prepare_ref(plan, ref)
+    pq = prepare_queries(plan, queries)
+    order, lb_sorted = cascade(plan, prep, pq.qn)
+    tag = f"l={m} w={plan.window} bw={bw} CPT=1"
+    kb = phase_kernel_b(torch, prep, pq, plan,
+                        tag=f"[3 short row] kernel B {tag}")
+    ka = phase_kernel_a(torch, prep, pq, plan, order, lb_sorted,
+                        tag=f"[3 short row] kernel A {tag}")
+    return {"kb": kb, "ka": ka, "tag": tag}
+
+
+def phase_times_short(torch, short: dict) -> dict:
+    """Kernels B and A at ``SHORT_ROW`` (phase 3 short row's inputs), by
+    CUDA events, beside their plain versions and bounds."""
+    tag = f"[6 times short row] {short['tag']}"
+    b_ms, b_plain, b_bound = time_kernel_b(torch, short["kb"],
+                                           f"{tag} kernel B")
+    a_ms, a_info, a_plain, a_bound = time_kernel_a(torch, short["ka"],
+                                                   f"{tag} kernel A")
+    mean = lambda xs: sum(xs) / len(xs)
+    return {
+        "dtw_ea_multi_fused": {
+            "length": SHORT_ROW["query_len"], "ms": mean(a_ms),
+            "info_ms": mean(a_info), "plain_ms": mean(a_plain),
+            "bound_ms": mean(a_bound),
+            "max_abs_err": short["ka"]["max_abs_err"]},
+        "lb_keogh_all_windows": {
+            "length": SHORT_ROW["query_len"], "ms": b_ms, "info_ms": None,
+            "plain_ms": b_plain, "bound_ms": b_bound,
+            "max_abs_err": short["kb"]["max_abs_err"]},
+    }
 
 
 def phase_wide_search(torch) -> dict:
@@ -3296,10 +3363,10 @@ def dtw_bound_ms(cells: int, nbytes: int) -> float:
     return max(FLOPS_PER_CELL * cells / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3
 
 
-def phase_times(torch, kb: dict, ka: dict, kd: dict, kce: dict,
-                loop: dict) -> list[dict]:
+def time_kernel_b(torch, kb: dict, tag: str) -> tuple[float, float, float]:
+    """Kernel B on phase 3's inputs ``kb``, by CUDA events, beside its plain
+    version and its bound: ``(ms, plain ms, bound ms)``."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.dtw_band import dtw_ea_fused_plain, dtw_ea_plain
     from repro_torch.kernels.lb_keogh import lb_all_windows_plain
 
     args, valid = kb["args"], kb["valid"]
@@ -3312,12 +3379,22 @@ def phase_times(torch, kb: dict, ka: dict, kd: dict, kce: dict,
     b_bytes = 4 * (ref.numel() + 2 * n_win + 2 * nq * length + 2 * nq
                    + nq * n_win) + n_win
     b_bound = max(b_ops / PEAK_FP32, b_bytes / PEAK_BYTES) * 1e3
-    say(f"[6 times] kernel B: {b_ms:.3f} ms (plain {b_plain:.1f} ms), bound "
-        f"{b_bound:.3f} ms by operations ({b_ops:.3e} flops), "
+    by = "operations" if b_ops / PEAK_FP32 >= b_bytes / PEAK_BYTES else "bytes"
+    say(f"{tag}: {b_ms:.3f} ms (plain {b_plain:.1f} ms), bound "
+        f"{b_bound:.3f} ms by {by} ({b_ops:.3e} flops), "
         f"{100 * b_bound / b_ms:.2f}% of the bound, "
         f"{b_ms * 1e6 / terms:.4g} ns a (query, window, offset) term; tiles "
         f"{ops.lb_query_tiles(nq, length)}; registers a thread by query tile "
         f"(ptxas) {lb_registers() or 'not built in this run'}")
+    return b_ms, b_plain, b_bound
+
+
+def time_kernel_a(torch, ka: dict, tag: str) -> tuple[list, list, list, list]:
+    """Kernel A on phase 3's rounds ``ka``, counter-free and with counters,
+    by CUDA events, beside its plain version and its bound: a list of one
+    entry a round each of ms, ms with counters, plain ms and bound ms."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dtw_band import dtw_ea_fused_plain
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     a_ms, a_info, a_plain, a_bound = [], [], [], []
@@ -3329,10 +3406,21 @@ def phase_times(torch, kb: dict, ka: dict, kd: dict, kce: dict,
         m = r["args"][-1]
         nbytes = 4 * (r["lanes"] * (m + 5) + 3 * r["args"][0].numel())
         a_bound.append(dtw_bound_ms(r["cells"], nbytes))
-        say(f"  kernel A round {i}: {a_ms[-1]:.3f} ms, with counters "
+        say(f"{tag} round {i}: {a_ms[-1]:.3f} ms, with counters "
             f"{a_info[-1]:.3f} ms (plain {a_plain[-1]:.1f} ms), "
-            f"bound {a_bound[-1]:.4f} ms ({r['cells']} cells); {r['rows']} DP "
+            f"bound {a_bound[-1]:.4f} ms ({r['cells']} cells, "
+            f"{bound_by(r['cells'], a_bound[-1])}); {r['rows']} DP "
             f"rows, {a_ms[-1] * 1e6 * sms / r['rows']:.1f} ns of one SM a row")
+    return a_ms, a_info, a_plain, a_bound
+
+
+def phase_times(torch, kb: dict, ka: dict, kd: dict, kce: dict,
+                loop: dict) -> list[dict]:
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dtw_band import dtw_ea_plain
+
+    b_ms, b_plain, b_bound = time_kernel_b(torch, kb, "[6 times] kernel B")
+    a_ms, a_info, a_plain, a_bound = time_kernel_a(torch, ka, "  kernel A")
 
     # Kernel D: the three rounds' slabs with the host cb slab; each lane
     # reads its window and cb rows (2m floats) and its ub, writes one float.
@@ -5096,6 +5184,7 @@ def main() -> int:
                order, lb_sorted)
     kd = timed("phase 3 kernel D", phase_kernel_d, torch, prep, pq, plan, ka)
     timed("phase 3 repeat", phase_repeat, torch, prep, plan, kb, ka)
+    short = timed("phase 3 short row", phase_short_row, torch)
     host = timed("phase 4 host rounds", phase_end_to_end, torch, cfg, ref,
                  queries, "host")
     loop = timed("phase 4 host loop", host_loop_split, torch, cfg, ref,
@@ -5137,6 +5226,7 @@ def main() -> int:
     timed("phase 5 baselines", phase_baselines, torch, cfg)
     kernels = timed("phase 6", phase_times, torch, kb, ka, kd, kce, loop)
     wide_ms = timed("phase 6 wide", phase_times_wide, torch, kw, wide)
+    short_ms = timed("phase 6 short row", phase_times_short, torch, short)
     lm = timed("phase 7 lm serve", phase_lm, torch)
     train = timed("phase 8 lm train", phase_train, torch)
     sharded = timed("phase 9 lm sharded", phase_sharded_train, torch, train)
@@ -5178,6 +5268,8 @@ def main() -> int:
         letter = WIDE_LETTERS.get(k["name"])
         k["wide"] = wide_ms[letter] if letter else None
         k["wide_max_abs_err"] = kw["max_abs_err"][letter] if letter else None
+        # kernels A and B at the short query (phase 3 short row)
+        k["short_row"] = short_ms.get(k["name"])
     say(f"[3 wide] largest relative error of the wide row against the plain "
         f"version {kw['max_abs_err']['rel']:.3e}, of its counters' cells "
         f"{kw['max_abs_err']['cells']:.3e}; long row (l = {LONG_ROW[0]}, "

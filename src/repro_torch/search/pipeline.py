@@ -508,9 +508,11 @@ def run_host_rounds(
 # The round loop runs this many rounds eagerly before it captures its
 # step, where the call can run as many more. A capture costs the host 1.4-
 # 4.6 ms (2.0 at the median), and a replayed round saves 0.3-0.5 ms at
-# l = 1024; most calls that pass three rounds run many more, so the
-# capture pays for itself, and a call that ends in fewer captures nothing
-# (PERF.md §6, PR 28: stream ingests, small searches).
+# l = 1024 and 0.46-0.59 ms at l = 128 (0.64-0.75 ms a round eager against
+# 0.17-0.18 replayed, N = 1e6, Q = 8, on an H100); most calls that pass
+# three rounds run many more, so the capture pays for itself, and a call
+# that ends in fewer captures nothing (PERF.md §6: stream ingests, small
+# searches, the short query).
 GRAPH_AFTER_ROUNDS = 3
 
 

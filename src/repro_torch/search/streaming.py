@@ -24,8 +24,7 @@ host rounds seeded with the carried incumbents):
 Every window is scanned once, in the ingest where it becomes valid, against
 a monotone non-increasing incumbent, so the final per-query ``(distance,
 start)`` equals the offline search over the concatenated stream for any
-chunking, up to the float32 rounding of each side's window stats (the
-offline search differences prefix sums over the whole series).
+chunking, up to the float32 rounding of each side's window stats.
 
 ``repro`` jits each ingest and so has two forms: the raw form retraces per
 distinct ``(tail, chunk)`` shape, and ``pad_to`` packs every ingest into one

@@ -5,12 +5,17 @@
 ``window_stats`` returns the *raw* standard deviation (zero on a constant
 window); every normalization site divides through ``clamp_sigma``.
 
-Precision: like ``repro``, the stats difference float32 prefix sums. At
-N = 1e6 that loses about 1e-4 relative in ``mu``/``sigma`` on either
-framework, and a GPU cumsum rounds in another order than XLA's CPU one. The
-port keeps the same float32 algorithm (it does not move to float64), so it
-is compared with ``repro`` end to end only at test sizes; on the card the
-kernels and their plain versions share one stats tensor.
+Precision: ``repro`` differences prefix sums in the series' dtype. In
+float32 the difference of two running sums keeps only about float32's
+epsilon times the running sum, which grows along the series: at N = 1e6
+windows of l = 1024 lose up to ~1.5e-4 relative in ``sigma``, and windows
+of l = 128 (the UCR Suite's usual query) up to ~9e-3, and the distances
+built on them follow. ``window_stats`` therefore sums,
+differences and takes the variance in float64, as the UCR Suite does, and
+returns the series' dtype: float32's rounding of the exact stats. The port
+is compared with ``repro`` end to end at test sizes, where the two agree
+to float32 rounding; on the card the kernels and their plain versions
+share one stats tensor.
 """
 from __future__ import annotations
 
@@ -40,8 +45,9 @@ def _cumsum(x: torch.Tensor) -> torch.Tensor:
 
     PyTorch runs a 1-D CUDA ``cumsum`` as one single-pass device scan, in
     which a tile adds the sums of the tiles before it in an order set by
-    timing; its float32 result can change from run to run (``chip_smoke.py``
-    phase 3 shows it). On CUDA the sum therefore runs in two levels, each a
+    timing; its floating-point result can change from run to run
+    (``chip_smoke.py`` phase 3 shows it). On CUDA the sum therefore runs in
+    two levels, each a
     scan that PyTorch performs in a fixed order: along rows of ``_SCAN_ROW``
     samples, then down the column of row totals. On the CPU ``cumsum`` is
     sequential and deterministic, and runs as it is.
@@ -69,17 +75,19 @@ def _prefix(x: torch.Tensor) -> torch.Tensor:
 
 
 def window_stats(ref: torch.Tensor, length: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Mean and raw std of every window ``ref[s : s+length]``.
+    """Mean and raw std of every window ``ref[s : s+length]``, worked out
+    in float64 (module docstring).
 
-    Returns ``(mu, sigma)``, each ``(N - length + 1,)``.
+    Returns ``(mu, sigma)``, each ``(N - length + 1,)``, in ``ref``'s dtype.
     """
-    p = _prefix(ref)
-    q = _prefix(ref * ref)
+    x = ref.to(torch.float64)
+    p = _prefix(x)
+    q = _prefix(x * x)
     s1 = p[length:] - p[: p.shape[0] - length]
     s2 = q[length:] - q[: q.shape[0] - length]
     mu = s1 / length
     var = torch.clamp_min(s2 / length - mu * mu, 0.0)
-    return mu, torch.sqrt(var)
+    return mu.to(ref.dtype), torch.sqrt(var).to(ref.dtype)
 
 
 def append_window_stats(
@@ -94,9 +102,8 @@ def append_window_stats(
     ending inside the new chunk, the ``length - 1`` windows straddling the
     tail/chunk boundary included), and ``new_tail`` is the context to carry
     into the next append. The cost is O(tail + chunk) however long the
-    stream already is, and the boundary-local prefix sums do not lose the
-    precision of differencing a running sum over the whole stream (so they
-    differ from the offline table by float32 rounding). With fewer than
+    stream already is; the stats differ from the offline table's by
+    float32 rounding. With fewer than
     ``length`` samples so far the stats are empty and ``new_tail`` is the
     whole stream.
     """

@@ -12,8 +12,9 @@ rounds to replays is held to the eager loop through a stand-in for the
 graph that runs the step on each replay. On the card (``card`` marker;
 this file imports no JAX: run it there with ``PYTHONPATH=src python -m
 pytest --noconftest -m card tests/test_torch_round_graph.py``), the replay
-is held bit for bit to the eager loop at both benchmark configurations'
-shapes with the reference cut short, a host sync inside the step must
+is held bit for bit to the eager loop at the benchmark configurations'
+shapes (l = 1024 with the reference cut short, l = 128 at its cell's
+N = 1e6), a host sync inside the step must
 fail the capture, and kernel A counts one launch a replay.
 """
 import numpy as np
@@ -221,19 +222,22 @@ def test_a_cpu_search_runs_every_round_eagerly(monkeypatch):
 # on the card
 # ---------------------------------------------------------------------------
 
-# The benchmark's two configurations (bench/configs/): l = 1024 at window
-# ratios 0.1 and 0.5, Q = 8, 256 candidates a query a round; the reference
-# cut to 60,000 samples (a few hundred rounds) to keep the test short.
+# The benchmark's configurations (bench/configs/): l = 1024 at window
+# ratios 0.1 and 0.5 with the reference cut to 60,000 samples (a few
+# hundred rounds) to keep the test short, and l = 128 at ratio 0.1 at its
+# cell's N = 1e6 (~650 rounds of a tenth of a millisecond); Q = 8, 256
+# candidates a query a round.
 CARD_N, CARD_L, CARD_Q, CARD_B = 60_000, 1024, 8, 256
+SHORT_N, SHORT_L = 1_000_000, 128
 
 
-def _card_search(dev, window, **kw):
-    before = {f.__name__: n for f, n in ops.counted_launches().items()}
+def _card_search(dev, window, length=CARD_L, n=CARD_N, **kw):
+    before = {f.__name__: c for f, c in ops.counted_launches().items()}
     with spans.recording() as rec:
         res = multi_query_search(
-            make_dataset("ECG", CARD_N, seed=0).astype(np.float32),
-            make_queries("ECG", CARD_Q, CARD_L, seed=1).astype(np.float32),
-            CARD_L, window, batch=CARD_B, device=dev, **kw)
+            make_dataset("ECG", n, seed=0).astype(np.float32),
+            make_queries("ECG", CARD_Q, length, seed=1).astype(np.float32),
+            length, window, batch=CARD_B, device=dev, **kw)
         torch.cuda.synchronize()
     launched = {f.__name__: f.launches - before[f.__name__]
                 for f in ops.counted_launches()}
@@ -243,12 +247,17 @@ def _card_search(dev, window, **kw):
 @pytest.mark.card
 @pytest.mark.parametrize("form", [dict(), dict(gather="slab", with_info=True),
                                   dict(variant="eapruned_nolb")])
-@pytest.mark.parametrize("window", [102, 512])
-def test_the_replay_is_the_eager_loop_bit_for_bit(card, monkeypatch, window,
-                                                  form):
-    graph, g_launched, g_counters = _card_search(card, window, **form)
+@pytest.mark.parametrize("n,length,window", [
+    (CARD_N, CARD_L, 102), (CARD_N, CARD_L, 512), (SHORT_N, SHORT_L, 12)],
+    ids=["102", "512", "l128-12"])
+def test_the_replay_is_the_eager_loop_bit_for_bit(card, monkeypatch, n,
+                                                  length, window, form):
+    shape = dict(length=length, n=n)
+    graph, g_launched, g_counters = _card_search(card, window, **shape,
+                                                 **form)
     monkeypatch.setattr(pipeline, "_capture_now", lambda *a: False)
-    eager, e_launched, e_counters = _card_search(card, window, **form)
+    eager, e_launched, e_counters = _card_search(card, window, **shape,
+                                                 **form)
     for a, b in zip(eager, graph):
         assert a.dtype == b.dtype and torch.equal(a, b)
     rounds = int(graph.rounds.max())

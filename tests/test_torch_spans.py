@@ -85,7 +85,7 @@ def test_spans_nest_and_carry_one_search_id_per_search():
         assert top == ["prepare_ref", "prepare_queries", "cascade", driver]
 
 
-def _assert_round_spans(rec, res) -> int:
+def _assert_round_spans(rec, res, nq=Q) -> int:
     """One ``round`` and one ``round.issue`` span a round, the issue inside
     its round; returns the rounds."""
     rounds = int(res.rounds.max())
@@ -93,7 +93,7 @@ def _assert_round_spans(rec, res) -> int:
     assert len(_named(rec, "round")) == rounds
     assert len(_named(rec, "round.issue")) == rounds
     assert len(_named(rec, "host_rounds")) == 1
-    assert rec.counters["host_rounds.lanes_launched"] == [Q * BATCH * rounds]
+    assert rec.counters["host_rounds.lanes_launched"] == [nq * BATCH * rounds]
     assert len(rec.counters["host_rounds.live_lanes"]) == 1
     # A round's sync closes its issue: the issue ends before the round.
     for name, start, end, parent, _ in _named(rec, "round.issue"):
@@ -193,6 +193,32 @@ def test_cascade_pruned_is_the_sum_of_lb_pruned(rounds):
                                               int(b.lb_pruned.sum())]
     assert rec.counters["cascade.pruned"][0] > 0
     assert rec.counters["cascade.windows"] == [Q * (N - LENGTH + 1)] * 2
+
+
+@pytest.mark.parametrize("seed", [2, 2**31 + 5])
+def test_counters_agree_with_the_result_at_the_short_query(seed):
+    """At ``ucr-ecg-l128-r0.1``'s geometry (l = 128, w = 12: the one-warp
+    row at one column a thread, Q = 8) on a seeded series, the counters are
+    the result's: the cascade's pruned windows its ``lb_pruned``, the lanes
+    the loop launched its rounds, the live lanes among those its ``lanes``
+    examined; and the cascade prunes most windows, as it does at N = 1e6."""
+    n, length, window, nq = 10_000, 128, 12, 8
+    ref = make_dataset("ECG", n, seed=seed).astype(np.float32)
+    queries = make_queries("ECG", nq, length, seed=seed + 1).astype(np.float32)
+    with spans.recording() as rec:
+        res = multi_query_search(ref, queries, length, window, batch=BATCH,
+                                 device="cpu")
+    n_win = n - length + 1
+    _assert_round_spans(rec, res, nq=nq)
+    pruned = int(res.lb_pruned.sum())
+    assert rec.counters["cascade.pruned"] == [pruned]
+    assert rec.counters["cascade.windows"] == [nq * n_win]
+    # A cold search examines a batch each round a query is active.
+    assert torch.equal(res.lanes, BATCH * res.rounds)
+    examined = int(torch.clamp_max(res.lanes, n_win).sum())
+    assert examined == nq * n_win - pruned
+    assert 0 < sum(rec.counters["host_rounds.live_lanes"]) <= examined
+    assert pruned > 0.8 * nq * n_win
 
 
 @pytest.mark.parametrize("rounds", ["host", "persistent"])

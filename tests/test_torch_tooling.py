@@ -1,7 +1,8 @@
 """The port's tooling: the two examples and the import lint.
 
 * ``examples/quickstart_torch.py`` prints what ``examples/quickstart.py``
-  prints, line for line, on the CPU;
+  prints, line for line, on the CPU, but for the search's distance, which
+  is the float64 one (the last printed digit may part from ``repro``'s);
 * ``examples/similarity_search_torch.py`` runs its four suites and its
   stream on the CPU at a tiny size, and its own exactness checks pass;
 * ``examples/feature_retrieval_torch.py`` encodes token windows with
@@ -14,6 +15,7 @@
 """
 import importlib.util
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -43,12 +45,42 @@ def _example(name: str):
     return mod
 
 
+def _quickstart_distance() -> float:
+    """The quickstart search's least distance in float64 (statistics too),
+    from the benchmark's plain reference on the quickstart's own data."""
+    import numpy as np
+
+    from bench.reference.search import Reference
+
+    rng = np.random.default_rng(0)
+    query = np.cumsum(rng.normal(size=128)).astype(np.float32)
+    np.cumsum(rng.normal(size=(64, 128)), axis=1)
+    ref = np.cumsum(rng.normal(size=5000)).astype(np.float32)
+    _, dists = Reference(ref, 128, 12, "cpu", budget=64 << 20).search(
+        query[None])
+    return dists[0]
+
+
 def test_quickstart_torch_prints_the_quickstart():
     mine = _run("examples/quickstart_torch.py", "--device", "cpu")
     theirs = _run("examples/quickstart.py")
     assert mine.returncode == 0, mine.stderr[-3000:]
     assert theirs.returncode == 0, theirs.stderr[-3000:]
-    assert mine.stdout.splitlines() == theirs.stdout.splitlines()
+    mine_lines, their_lines = mine.stdout.splitlines(), theirs.stdout.splitlines()
+    assert len(mine_lines) == len(their_lines)
+    for a, b in zip(mine_lines, their_lines):
+        if not a.startswith("nearest window:"):
+            assert a == b
+            continue
+        # The search's distance: the port works out the window statistics
+        # in float64, ``repro`` differences float32 prefix sums of a random
+        # walk, so the two may part in the last printed digit. The port
+        # prints the float64 distance; every other word is the same.
+        (a_head, a_dist, a_tail), (b_head, b_dist, b_tail) = (
+            re.fullmatch(r"(.*dist=)(\S+)( .*)", x).groups() for x in (a, b))
+        assert (a_head, a_tail) == (b_head, b_tail)
+        assert a_dist == f"{_quickstart_distance():.4f}"
+        assert abs(float(a_dist) - float(b_dist)) <= 1.5e-4
     assert "DTW(S, T) = 9.0" in mine.stdout
 
 
